@@ -1,0 +1,20 @@
+"""beamforming_lk_tpu_torch — the PyTorch + CUDA port of beamforming_lk_tpu.
+
+Same layout and names as the JAX package (``ops``, ``io``, ``models``,
+``app``), written for PyTorch on an NVIDIA H100.  The port carries the live
+per-block step (``app.awpu.AwpuPipeline.process_block`` under
+``config.realtime``); its one hand-written kernel, the whole per-block
+swarm update, is ``csrc/swarm_chain.cu``.  The JAX package stays beside it
+as the reference; this package imports no JAX.
+"""
+
+__version__ = "0.1.0"
+
+from beamforming_lk_tpu_torch.config import (  # noqa: F401
+    ArrayConfig,
+    Config,
+    DspConfig,
+    MimoConfig,
+    TrackerConfig,
+    realtime,
+)

@@ -1,0 +1,72 @@
+"""Carry state and constants over from the JAX package.
+
+Both functions take the JAX objects' arrays as numpy (``np.asarray`` of each
+leaf, which needs no JAX import here) and return the port's tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from beamforming_lk_tpu_torch.app.awpu import AwpuState
+from beamforming_lk_tpu_torch.models.miso import MisoState
+from beamforming_lk_tpu_torch.models.tracker import Particles, SwarmState
+from beamforming_lk_tpu_torch.ops.fft_das import FftHeatmapModel
+
+
+def _t(a, device, dtype=None):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _particles(p, device) -> Particles:
+    return Particles(*(_t(getattr(p, f), device, torch.float32)
+                       for f in Particles._fields))
+
+
+def awpu_state_from_jax(state, device=None) -> AwpuState:
+    """A JAX ``AwpuState`` whose leaves are numpy arrays (its PRNG key is
+    not read) -> the port's ``AwpuState``; the counters become host ints."""
+    sw = state.swarm
+    swarm = SwarmState(
+        seekers=_particles(sw.seekers, device),
+        trackers=_particles(sw.trackers, device),
+        tracking=_t(sw.tracking, device, torch.bool),
+        start=_t(sw.start, device, torch.float32),
+        jumped=_t(sw.jumped, device, torch.bool),
+        mean=_t(sw.mean, device, torch.float32),
+        reset_count=int(np.asarray(sw.reset_count)),
+        target_theta=_t(sw.target_theta, device, torch.float32),
+        target_phi=_t(sw.target_phi, device, torch.float32),
+        target_valid=_t(sw.target_valid, device, torch.bool),
+    )
+    return AwpuState(
+        history=_t(state.history, device, torch.float32),
+        swarm=swarm,
+        miso=MisoState(
+            particle=_particles(state.miso.particle, device),
+            tracking=_t(state.miso.tracking, device, torch.bool),
+        ),
+        prev_max=_t(state.prev_max, device, torch.float32),
+        block_index=int(np.asarray(state.block_index)),
+        powers=_t(state.powers, device, torch.float32),
+    )
+
+
+def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
+    """The JAX ``FftHeatmapModel`` (``power_path="fused"``, no PHAT, no
+    lattice-order promise) -> the port's module with the same constants."""
+    if model.phat or model.power_path != "fused" or model.channel_perm is not None:
+        raise NotImplementedError(
+            "only the fused-power, non-PHAT heatmap model is ported"
+        )
+    np_ = lambda a: None if a is None else np.asarray(a)  # noqa: E731
+    dead = None if model.dead is None else tuple(np.asarray(a) for a in model.dead)
+    return FftHeatmapModel(
+        ex_s=np_(model.ex_s), ey_s=np_(model.ey_s), dft=np_(model.dft),
+        pow_ri=np_(model.pow_ri), perm_matrix=np_(model.perm_matrix),
+        src_map=np_(model.src_map), dead=dead, rows=model.rows,
+        columns=model.columns, block_size=model.block_size,
+        fft_len=model.fft_len, n_active=model.n_active,
+        compute=model.compute, device=device,
+    )

@@ -1,0 +1,580 @@
+// The whole per-block swarm update of the acoustic tracker as one CUDA kernel.
+//
+// Replaces beamforming_lk_tpu/ops/pallas_tracker.py::swarm_chain_pallas
+// (kernel _swarm_kernel, block update _make_swarm_block_update): n_iter
+// iterations of [n_sub chained 4-probe monopulse sub-steps + merge + seeker
+// jump + promote], then the publish prune (seeker mean, reference power,
+// sidelobe gate) and the f32 MISO audio beam at the listener's direction.
+// The plain PyTorch twin is ops/cuda_tracker.py::swarm_chain_reference.
+//
+// What bounds it on an H100: it runs as ONE thread block on one SM, and
+// each sub-step's probe directions depend on the previous sub-step's
+// powers, so it is latency-bound by that chain, not by bytes or FLOPs (a
+// block's window is 37 KB at 64 mics in bf16, 163 KB at 256 mics).
+//
+// Why it gathers: the TPU kernel multiplies a dense one-hot stencil
+// [4P, span*C] with an s-major window because Mosaic has no gathers.  Here
+// each probe beam is gathered straight from the compact window,
+//     beam[t] = sum_c sum_j w_j(c) * bp[c, shift(c) + j + t],
+// which is taps/span of the dense work (2/32 at 64 mics), and rows that are
+// inactive in a sub-step are not computed at all: they keep their values,
+// exactly as in the masked computation.  One warp owns one probe row at a
+// time (lanes over time samples, a shuffle reduction for the power); the
+// iteration boundaries run in warp 0 with lanes over particle rows.
+//
+// Later work: spread a sub-step's probe rows over several SMs (a cluster
+// sharing the window through distributed shared memory), stage the window
+// with TMA, run the contraction on tensor cores over a banded stencil, keep
+// the K-block replay loop (swarm_chunk_pallas) inside the kernel, and
+// capture the per-block host ops around it in a CUDA graph.
+//
+// Numerics: the probe weights are rounded to the window's dtype before the
+// product and every sum is f32 (as w.astype(win.dtype) with an f32 dot);
+// sinf/cosf/sqrtf/floorf without fast math; the merge tests compare
+// cos(angle) > cos(closeness) as the TPU kernel does.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTaps = 16;
+constexpr int kPerLane = 8;                 // beam samples per lane per pass
+constexpr int kTile = 32 * kPerLane;
+constexpr size_t kMaxSmem = 232448;         // 227 KB a block can use on sm_90
+constexpr float kPiF = (float)M_PI;
+constexpr float kPiHalfF = (float)(M_PI / 2.0);
+constexpr float kTwoPiF = (float)(2.0 * M_PI);
+
+// Rows of the packed per-particle operand (ops/cuda_tracker.py ROW_FIELDS).
+enum Row {
+  TH, PH, GT, GP, RAD, ERR, TRK, START, RATE, SPREAD,
+  FAM_T, FAM_S, FAM_M, TGT_TH, TGT_PH, TGT_VA, NROWS
+};
+constexpr int kStateRows = 8;
+
+struct Params {
+  const float* xyz;        // [4, C]
+  const void* win_bp;      // [C, span+T-2] f32 or bf16
+  const float* win_raw;    // [C, span+T]
+  const float* rows_in;    // [NROWS, P]
+  const float* jumps;      // [2, n_iter, P]
+  const float* reference;  // []
+  float* out_rows;         // [kStateRows, P]
+  float* out_mean;         // []
+  float* out_beam;         // [T]
+  int C, P, T, span, taps, n_iter, n_sub, refine, n_trackers;
+  int quadrant, fir, fir_phases, win_smem;
+  float theta_limit, sin_tl, cos_tl, inv_div, cos_closeness;
+  float error_threshold, min_power_fraction, block_index;
+  float cos_b[4], sin_b[4], blackman[kMaxTaps];
+};
+
+struct Layout {
+  size_t win, w, sh, rows, pow, act, flags, list, misc, total;
+};
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~size_t(15);
+}
+
+// Dynamic shared memory: [window (optional)] [per-warp stencil weights]
+// [per-warp shifts] [particle rows] [probe powers] [active flags]
+// [merge / capture-zone flags] [active row list] [scalars].
+__host__ __device__ inline Layout make_layout(int C, int P, int T, int span,
+                                              int taps, int elem,
+                                              bool win_smem) {
+  Layout L;
+  size_t off = 0;
+  L.win = off;
+  if (win_smem) off += align16((size_t)C * (span + T - 2) * elem);
+  L.w = off;
+  off += align16((size_t)kWarps * C * taps * sizeof(float));
+  L.sh = off;
+  off += align16((size_t)kWarps * C * sizeof(int));
+  L.rows = off;
+  off += align16((size_t)NROWS * P * sizeof(float));
+  L.pow = off;
+  off += align16((size_t)4 * P * sizeof(float));
+  L.act = off;
+  off += align16((size_t)P * sizeof(int));
+  L.flags = off;
+  off += align16((size_t)2 * P * sizeof(int));
+  L.list = off;
+  off += align16((size_t)(P + 1) * sizeof(int));
+  L.misc = off;
+  off += align16(4 * sizeof(float));
+  L.total = off;
+  return L;
+}
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float round_as(float w, const float*) { return w; }
+__device__ __forceinline__ float round_as(float w, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ int warp_min_int(int v) {
+  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Steering direction of probe b around (theta, phi): the ring point at
+// inclination `spread` rotated by Rz(phi) Ry(rt) with the FoV-edge back-off,
+// pulled to the theta limit at the same azimuth when it falls outside.
+__device__ void probe_dir(const Params& p, float theta, float phi,
+                          float spread, int b, float* ux, float* uy,
+                          float* uz) {
+  const bool near = theta + spread > kPiHalfF;
+  const float rt = near ? theta - spread : theta;
+  const float c_t = cosf(rt), s_t = sinf(rt);
+  const float c_p = cosf(phi), s_p = sinf(phi);
+  const float sin_sp = sinf(spread), cos_sp = cosf(spread);
+  const float bx = sin_sp * p.cos_b[b];
+  const float by = sin_sp * p.sin_b[b];
+  const float vx = c_t * bx + s_t * cos_sp;
+  const float vz = -s_t * bx + c_t * cos_sp;
+  const float wx = c_p * vx - s_p * by;
+  const float wy = s_p * vx + c_p * by;
+  if (vz < p.cos_tl) {
+    const float r = fmaxf(sqrtf(wx * wx + wy * wy), 1e-12f);
+    *ux = p.sin_tl * wx / r;
+    *uy = -(p.sin_tl * wy / r);
+    *uz = p.cos_tl;
+  } else {
+    *ux = wx;
+    *uy = -wy;
+    *uz = vz;
+  }
+}
+
+// Warp-cooperative stencil of direction u: min-subtracted delays over ALL
+// channels (masked ones included), split at shift = (span - taps) -
+// floor(tau), weighted [frac, 1-frac] or by the closed-form windowed-sinc
+// row, times the channel mask; written to this warp's scratch.
+template <typename WT>
+__device__ void warp_stencil(const Params& p, float ux, float uy, float uz,
+                             bool round_w, float* sw, int* ssh, int lane) {
+  const int C = p.C, taps = p.taps, base = p.span - p.taps;
+  const float* px = p.xyz;
+  const float* py = px + C;
+  const float* pz = py + C;
+  const float* mask = pz + C;
+  float tmin = INFINITY;
+  for (int c = lane; c < C; c += 32)
+    tmin = fminf(tmin, ux * px[c] + uy * py[c] + uz * pz[c]);
+  tmin = warp_min(tmin);
+  for (int c = lane; c < C; c += 32) {
+    float tau = ux * px[c] + uy * py[c] + uz * pz[c];
+    tau = fminf(fmaxf(tau - tmin, 0.0f), (float)base);
+    const float whole = floorf(tau);
+    const float frac = tau - whole;
+    ssh[c] = base - (int)whole;
+    const float m = mask[c];
+    float* wc = sw + c * taps;
+    if (!p.fir) {
+      wc[0] = frac * m;
+      wc[1] = (1.0f - frac) * m;
+    } else {
+      // sin(pi (t - d)) = -(-1)^t sin(pi d): one sinf per channel.
+      const float fq = rintf(frac * (float)(p.fir_phases - 1)) /
+                       (float)(p.fir_phases - 1);
+      const float d = 4.0f - fq;  // the bank's centre tap, delay.py
+      const float sin_pd = sinf(kPiF * d);
+      float hs[kMaxTaps];
+      for (int t = 0; t < taps; ++t) {
+        const float x = kPiF * ((float)t - d);
+        const float sign = (t & 1) ? 1.0f : -1.0f;
+        const float s = fabsf(x) < 1e-4f ? 1.0f - x * x * (1.0f / 6.0f)
+                                         : (sign * sin_pd) / x;
+        hs[t] = s * p.blackman[t];
+      }
+      float hsum = hs[0];
+      for (int t = 1; t < taps; ++t) hsum = hsum + hs[t];
+      for (int t = 0; t < taps; ++t) wc[t] = hs[t] / hsum * m;
+    }
+    if (round_w)
+      for (int t = 0; t < taps; ++t) wc[t] = round_as(wc[t], (const WT*)nullptr);
+  }
+  __syncwarp();
+}
+
+// Power of one probe beam over n_out samples, by one warp: lanes own time
+// samples, the weights and shifts come from the warp's scratch.
+template <typename WT>
+__device__ float warp_probe_power(const WT* win, int ldw, int C, int taps,
+                                  int n_out, const float* sw, const int* ssh,
+                                  int lane) {
+  float pw = 0.0f;
+  for (int t0 = 0; t0 < n_out; t0 += kTile) {
+    float acc[kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const WT* rp = win + (size_t)c * ldw + ssh[c] + t0 + lane;
+      const float* wc = sw + c * taps;
+      for (int j = 0; j < taps; ++j) {
+        const float w = wc[j];
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          if (t0 + lane + 32 * i < n_out)
+            acc[i] = acc[i] + w * load_f(rp + j + 32 * i);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i)
+      if (t0 + lane + 32 * i < n_out) pw = pw + acc[i] * acc[i];
+  }
+  return warp_sum(pw);
+}
+
+// Iteration boundary, run by warp 0 (lanes over rows): merge close
+// trackers (oldest / lowest index survives), jump seekers out of the
+// previous block's published capture zones, promote the best converged
+// seeker to every free tracker, and the mean valid-seeker power.
+__device__ void iteration_boundary(const Params& p, float* rows, int* flags,
+                                   float* misc, int it, int lane) {
+  const int P = p.P, nt = p.n_trackers;
+  float* th = rows + TH * P;
+  float* ph = rows + PH * P;
+  float* rad = rows + RAD * P;
+  float* err = rows + ERR * P;
+  float* trk = rows + TRK * P;
+  float* start = rows + START * P;
+  const float* ft = rows + FAM_T * P;
+  const float* fs = rows + FAM_S * P;
+  const float* tgt_th = rows + TGT_TH * P;
+  const float* tgt_ph = rows + TGT_PH * P;
+  const float* tgt_va = rows + TGT_VA * P;
+  int* stop = flags;
+  int* too_close = flags + P;
+
+  float cnt = 0.0f;  // pre-merge tracker count gates promotion
+  for (int r = lane; r < P; r += 32) cnt += trk[r] > 0.5f ? 1.0f : 0.0f;
+  const float n_tracking = warp_sum(cnt);
+
+  for (int r = lane; r < P; r += 32) {
+    const float cos_t = cosf(th[r]), sin_t = sinf(th[r]), phi = ph[r];
+    const bool trk_r = trk[r] > 0.5f, is_t = ft[r] > 0.5f;
+    int s = 0, tc = 0;
+    for (int n = 0; n < nt; ++n) {
+      const float cos_ang =
+          cos_t * cosf(th[n]) + sin_t * sinf(th[n]) * cosf(phi - ph[n]);
+      const bool close = cos_ang > p.cos_closeness && trk_r &&
+                         trk[n] > 0.5f && r != n && is_t;
+      const bool older =
+          start[r] > start[n] || (start[r] == start[n] && r > n);
+      if (close && older) s = 1;
+      const float cos_tg = cos_t * cosf(tgt_th[n]) +
+                           sin_t * sinf(tgt_th[n]) * cosf(phi - tgt_ph[n]);
+      if (cos_tg > p.cos_closeness && tgt_va[n] > 0.5f) tc = 1;
+    }
+    stop[r] = s;
+    too_close[r] = tc && fs[r] > 0.5f;
+  }
+  __syncwarp();
+
+  const float* jt = p.jumps + (size_t)it * P;
+  const float* jp = p.jumps + (size_t)(p.n_iter + it) * P;
+  for (int r = lane; r < P; r += 32) {
+    if (stop[r]) trk[r] = 0.0f;
+    if (too_close[r]) {
+      th[r] = fminf(fmaxf(th[r] + jt[r], 0.0f), p.theta_limit);
+      const float raw = ph[r] + jp[r];
+      ph[r] = raw - floorf(raw / kTwoPiF) * kTwoPiF;
+    }
+  }
+  __syncwarp();
+
+  float maxv = -INFINITY, better = 0.0f, n_valid = 0.0f, sum_valid = 0.0f;
+  for (int r = lane; r < P; r += 32) {
+    const bool valid = fs[r] > 0.5f && !too_close[r];
+    const bool conv = valid && err[r] < p.error_threshold;
+    maxv = fmaxf(maxv, conv ? rad[r] : -3.0e38f);
+    if (conv && rad[r] > 0.0f) better = 1.0f;
+    if (valid) {
+      n_valid += 1.0f;
+      sum_valid += rad[r];
+    }
+  }
+  maxv = warp_max(maxv);
+  better = warp_max(better);
+  n_valid = warp_sum(n_valid);
+  sum_valid = warp_sum(sum_valid);
+  int best = 1 << 30;  // first index of the maximum
+  for (int r = lane; r < P; r += 32) {
+    const bool conv =
+        fs[r] > 0.5f && !too_close[r] && err[r] < p.error_threshold;
+    if (conv && rad[r] >= maxv) best = min(best, r);
+  }
+  best = warp_min_int(best);
+  const float th_b = best < P ? th[best] : 0.0f;
+  const float ph_b = best < P ? ph[best] : 0.0f;
+  __syncwarp();
+  if (better > 0.5f && n_tracking < (float)nt) {
+    for (int r = lane; r < P; r += 32) {
+      if (!(trk[r] > 0.5f) && ft[r] > 0.5f) {
+        th[r] = th_b;
+        ph[r] = ph_b;
+        start[r] = p.block_index;
+        trk[r] = 1.0f;
+      }
+    }
+  }
+  if (lane == 0) misc[0] = sum_valid / fmaxf(n_valid, 1.0f);
+  __syncwarp();
+}
+
+// Publish boundary, run by warp 0: prune weak or diverged trackers, then
+// the sidelobe gate against the strongest tracked power.
+__device__ void publish_prune(const Params& p, float* rows, const float* misc,
+                              int lane) {
+  const int P = p.P;
+  const float* rad = rows + RAD * P;
+  const float* err = rows + ERR * P;
+  float* trk = rows + TRK * P;
+  const float mean = misc[0], ref = *p.reference;
+  for (int r = lane; r < P; r += 32)
+    if (rad[r] < mean || rad[r] < ref || err[r] > p.error_threshold)
+      trk[r] = 0.0f;
+  if (p.min_power_fraction > 0.0f) {
+    float strongest = -INFINITY;
+    for (int r = lane; r < P; r += 32)
+      strongest = fmaxf(strongest, trk[r] > 0.5f ? rad[r] : 0.0f);
+    strongest = warp_max(strongest);
+    const float floor_p = p.min_power_fraction * strongest;
+    for (int r = lane; r < P; r += 32)
+      if (!(rad[r] >= floor_p)) trk[r] = 0.0f;
+  }
+  __syncwarp();
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(kThreads, 1)
+    swarm_chain_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = p.C, P = p.P, T = p.T;
+  const Layout L = make_layout(C, P, T, p.span, p.taps, (int)sizeof(WT),
+                               p.win_smem != 0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* rows = reinterpret_cast<float*>(smem + L.rows);
+  float* pow4 = reinterpret_cast<float*>(smem + L.pow);
+  int* act = reinterpret_cast<int*>(smem + L.act);
+  int* flags = reinterpret_cast<int*>(smem + L.flags);
+  int* list = reinterpret_cast<int*>(smem + L.list);
+  float* misc = reinterpret_cast<float*>(smem + L.misc);
+  float* sw = reinterpret_cast<float*>(smem + L.w) + (size_t)warp * C * p.taps;
+  int* ssh = reinterpret_cast<int*>(smem + L.sh) + (size_t)warp * C;
+  const int ldw = p.span + T - 2;
+
+  const WT* win = static_cast<const WT*>(p.win_bp);
+  if (p.win_smem) {
+    WT* s_win = reinterpret_cast<WT*>(smem + L.win);
+    const size_t n = (size_t)C * ldw;
+    for (size_t i = tid; i < n; i += kThreads) s_win[i] = win[i];
+    win = s_win;
+  }
+  for (int i = tid; i < NROWS * P; i += kThreads) rows[i] = p.rows_in[i];
+  if (tid == 0) misc[0] = 0.0f;
+  __syncthreads();
+
+  float* th = rows + TH * P;
+  float* ph = rows + PH * P;
+  float* gt = rows + GT * P;
+  float* gp = rows + GP * P;
+  float* rad = rows + RAD * P;
+  float* err = rows + ERR * P;
+  const float* trk = rows + TRK * P;
+  const float* rate = rows + RATE * P;
+  const float* spread = rows + SPREAD * P;
+  const float* ft = rows + FAM_T * P;
+  const float* fs = rows + FAM_S * P;
+  const float* fm = rows + FAM_M * P;
+
+  for (int it = 0; it < p.n_iter; ++it) {
+    for (int j = 0; j < p.n_sub; ++j) {
+      // Trackers step while tracking, seekers ride sub-step 0, the MISO
+      // row while its refine budget lasts; only active rows are computed.
+      const int slot = it * p.n_sub + j;
+      if (tid == 0) {
+        int n = 0;
+        for (int r = 0; r < P; ++r) {
+          const bool a = (ft[r] > 0.5f && trk[r] > 0.5f) ||
+                         (j == 0 && fs[r] > 0.5f) ||
+                         (slot < p.refine && fm[r] > 0.5f);
+          act[r] = a;
+          if (a) list[1 + n++] = r;
+        }
+        list[0] = n;
+      }
+      __syncthreads();
+      const int n_probe = 4 * list[0];
+      for (int q = warp; q < n_probe; q += kWarps) {
+        const int r = list[1 + (q >> 2)], b = q & 3;
+        float ux, uy, uz;
+        probe_dir(p, th[r], ph[r], spread[r], b, &ux, &uy, &uz);
+        warp_stencil<WT>(p, ux, uy, uz, true, sw, ssh, lane);
+        const float s =
+            warp_probe_power(win, ldw, C, p.taps, T - 2, sw, ssh, lane);
+        if (lane == 0) pow4[r * 4 + b] = s * p.inv_div;
+        __syncwarp();  // the scratch is rewritten by the next probe
+      }
+      __syncthreads();
+      for (int r = tid; r < P; r += kThreads) {
+        if (!act[r]) continue;
+        const float q1 = pow4[r * 4], q2 = pow4[r * 4 + 1];
+        const float q3 = pow4[r * 4 + 2], q4 = pow4[r * 4 + 3];
+        const float total = fmaxf(q1 + q2 + q3 + q4, 1e-30f);
+        float g_t, g_p;
+        if (p.quadrant) {
+          g_t = ((q1 + q2) - (q3 + q4)) / total;
+          g_p = ((q1 + q4) - (q2 + q3)) / total;
+        } else {
+          g_t = (q1 - q3) / fmaxf(fmaxf(q1, q3), 1e-30f);
+          g_p = (q2 - q4) / fmaxf(fmaxf(q2, q4), 1e-30f);
+        }
+        const float theta = th[r], sp = spread[r], k = rate[r];
+        const float adj = theta + sp > kPiHalfF ? theta - sp / 2.0f : theta;
+        float new_t = adj + k * g_t;
+        float new_p = ph[r] + (k * g_p) / sinf(1e-9f + new_t);
+        new_t = fminf(fmaxf(new_t, 0.0f), p.theta_limit);
+        new_p = new_p - floorf(new_p / kTwoPiF) * kTwoPiF;
+        th[r] = new_t;
+        ph[r] = new_p;
+        gt[r] = g_t;
+        gp[r] = g_p;
+        rad[r] = total * 0.25f;
+        err[r] = fabsf(g_t) + fabsf(g_p);
+      }
+      __syncthreads();
+    }
+    if (warp == 0) iteration_boundary(p, rows, flags, misc, it, lane);
+    __syncthreads();
+  }
+
+  if (warp == 0) {
+    publish_prune(p, rows, misc, lane);
+    // MISO beam stencil at the listener row's final direction, in f32.
+    float tm = 0.0f, pm = 0.0f;
+    for (int r = lane; r < P; r += 32)
+      if (fm[r] > 0.5f) {
+        tm += th[r];
+        pm += ph[r];
+      }
+    tm = warp_sum(tm);
+    pm = warp_sum(pm);
+    const float st = sinf(tm), ct = cosf(tm), sp = sinf(pm), cp = cosf(pm);
+    warp_stencil<WT>(p, st * cp, -st * sp, ct, false, sw, ssh, lane);
+  }
+  __syncthreads();
+  const float* sw0 = reinterpret_cast<const float*>(smem + L.w);
+  const int* ssh0 = reinterpret_cast<const int*>(smem + L.sh);
+  const int ldr = p.span + T;
+  for (int t = tid; t < T; t += kThreads) {
+    float acc = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float* rp = p.win_raw + (size_t)c * ldr + ssh0[c] + t;
+      for (int j = 0; j < p.taps; ++j) acc = acc + sw0[c * p.taps + j] * rp[j];
+    }
+    p.out_beam[t] = acc;
+  }
+  for (int i = tid; i < kStateRows * P; i += kThreads) p.out_rows[i] = rows[i];
+  if (tid == 0) *p.out_mean = misc[0];
+}
+
+template <typename WT>
+cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      swarm_chain_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  swarm_chain_kernel<WT><<<1, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* swarm_chain_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
+// success).  host_consts (host memory): the probe ring's cos[4], sin[4],
+// then the Blackman window padded to kMaxTaps.  The window goes to shared
+// memory when it fits beside the scratch, else it is read from global
+// memory (L2) in place.
+extern "C" int swarm_chain_launch(
+    const float* xyz, const void* win_bp, int win_bf16, const float* win_raw,
+    const float* rows_in, const float* jumps, const float* reference,
+    float* out_rows, float* out_mean, float* out_beam, int C, int P, int T,
+    int span, int taps, int n_iter, int n_sub, int refine, int n_trackers,
+    int quadrant, int fir, int fir_phases, float theta_limit, float sin_tl,
+    float cos_tl, float inv_div, float cos_closeness, float error_threshold,
+    float min_power_fraction, float block_index, const float* host_consts,
+    void* stream) {
+  if (taps < 1 || taps > kMaxTaps || (!fir && taps != 2) || C < 1 || P < 1 ||
+      T < 3 || n_trackers > P)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  memset(&p, 0, sizeof(p));
+  p.xyz = xyz;
+  p.win_bp = win_bp;
+  p.win_raw = win_raw;
+  p.rows_in = rows_in;
+  p.jumps = jumps;
+  p.reference = reference;
+  p.out_rows = out_rows;
+  p.out_mean = out_mean;
+  p.out_beam = out_beam;
+  p.C = C;
+  p.P = P;
+  p.T = T;
+  p.span = span;
+  p.taps = taps;
+  p.n_iter = n_iter;
+  p.n_sub = n_sub;
+  p.refine = refine;
+  p.n_trackers = n_trackers;
+  p.quadrant = quadrant;
+  p.fir = fir;
+  p.fir_phases = fir_phases;
+  p.theta_limit = theta_limit;
+  p.sin_tl = sin_tl;
+  p.cos_tl = cos_tl;
+  p.inv_div = inv_div;
+  p.cos_closeness = cos_closeness;
+  p.error_threshold = error_threshold;
+  p.min_power_fraction = min_power_fraction;
+  p.block_index = block_index;
+  memcpy(p.cos_b, host_consts, sizeof(p.cos_b));
+  memcpy(p.sin_b, host_consts + 4, sizeof(p.sin_b));
+  memcpy(p.blackman, host_consts + 8, sizeof(p.blackman));
+
+  const int elem = win_bf16 ? 2 : 4;
+  Layout L = make_layout(C, P, T, span, taps, elem, true);
+  p.win_smem = L.total <= kMaxSmem;
+  if (!p.win_smem) L = make_layout(C, P, T, span, taps, elem, false);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, L.total, s)
+                        : launch<float>(p, L.total, s));
+}

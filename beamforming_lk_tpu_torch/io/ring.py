@@ -1,0 +1,43 @@
+"""Per-channel sample history (counterpart of ``beamforming_lk_tpu.io.ring``).
+
+The history is a ``[channels, history]`` tensor with the newest samples at
+the end.  :func:`ring_push` returns a new tensor (one concatenation on the
+device); callers may also update a history in place with
+``hist.copy_(ring_push(hist, block))`` where they own it exclusively.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: Samples of lookahead kept past the beamformed block so interpolation taps
+#: (up to 8 for the FIR bank) never read off the end of history.
+LOOKAHEAD_GUARD = 8
+
+
+def ring_init(channels: int, history: int, device=None, dtype=torch.float32):
+    return torch.zeros((channels, history), dtype=dtype, device=device)
+
+
+def ring_push(history, block):
+    """Append a [C, T] block, dropping the oldest T samples."""
+    t = block.shape[-1]
+    return torch.cat([history[..., t:], block.to(history.dtype)], dim=-1)
+
+
+def block_start(history_len: int, block_size: int) -> int:
+    """History index where the beamformed block begins."""
+    return history_len - block_size - LOOKAHEAD_GUARD
+
+
+def ring_window(history, block_size: int, shift_range: int, taps: int):
+    """The [C, T + S] window the DAS stages consume (a view): it starts at
+    ``block_start - (S - taps)`` so stencil index ``t + shift + j`` lands on
+    history index ``block_start + t - floor(delay) + j``."""
+    h = history.shape[-1]
+    w0 = block_start(h, block_size) - (shift_range - taps)
+    if w0 < 0:
+        raise ValueError(
+            f"history {h} too short for block {block_size} + shifts {shift_range}"
+        )
+    return history[..., w0:w0 + block_size + shift_range]

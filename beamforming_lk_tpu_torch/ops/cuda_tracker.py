@@ -1,0 +1,421 @@
+"""The whole per-block swarm update as one CUDA kernel, with its plain twin.
+
+Counterpart of ``beamforming_lk_tpu.ops.pallas_tracker.swarm_chain_pallas``:
+``n_iter`` iterations of [``n_sub`` chained 4-probe monopulse sub-steps +
+merge + seeker jump + promote], then the publish prune and the MISO audio
+beam at the refined listener direction.  The CUDA source is
+``beamforming_lk_tpu_torch/csrc/swarm_chain.cu``.
+
+Operand layout (shared by the kernel and the twin):
+
+- ``xyz``        [4, C] f32: x, y, z times samples-per-metre, channel mask
+- ``window_bp``  [C, span+T-2] compact probe window with the 3-tap bandpass
+                 applied, f32 or bf16 (the probe compute dtype)
+- ``window_raw`` [C, span+T] f32 compact raw window (the MISO beam)
+- ``rows``       [16, P] f32 per-particle rows, named by :data:`ROW_FIELDS`;
+                 particle rows are laid out trackers | miso | seekers
+- ``jumps``      [2, n_iter, P] f32 seeker jump offsets (theta, phi)
+- ``reference``  [] f32 the prune floor (channel-0 bandpass power)
+
+The probe beam of row r, probe q is gathered straight from the compact
+window, ``beam[t] = sum_c sum_j w_j(r,q,c) * bp[c, shift(r,q,c) + j + t]``:
+the same numbers as the TPU kernel's dense one-hot stencil against its
+s-major window (row ``s*C + c`` of which is ``bp[c, s + t]``).
+
+:func:`swarm_chain` dispatches on the device of its tensors: CPU tensors
+take :func:`swarm_chain_reference`, CUDA tensors launch the kernel (or the
+call raises), any other device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import os
+
+import numpy as np
+import torch
+
+from beamforming_lk_tpu_torch.ops import delay as dl
+from beamforming_lk_tpu_torch.ops.geometry import PI_HALF
+
+#: Rows of the packed per-particle operand; the first :data:`STATE_ROWS`
+#: come back updated.
+ROW_FIELDS = (
+    "theta", "phi", "grad_theta", "grad_phi", "radius", "error",
+    "tracking", "start", "rate", "spread", "is_tracker", "is_seeker",
+    "is_miso", "target_theta", "target_phi", "target_valid",
+)
+STATE_ROWS = 8
+
+_QUADRANT_DEG = (45.0, 315.0, 225.0, 135.0)
+_NEARBY_DEG = (0.0, 90.0, 180.0, 270.0)
+_EPS = 1e-9
+_TWO_PI = 2.0 * math.pi
+_MAX_TAPS = 16
+_SOURCE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "csrc", "swarm_chain.cu",
+)
+
+
+def pack_geometry(points, samples_per_meter, channel_mask=None, device=None):
+    """[4, C] f32 geometry operand: rows x, y, z times samples-per-metre and
+    the channel validity mask."""
+    pts = np.asarray(points, np.float64) * float(samples_per_meter)
+    mask = (
+        np.ones(pts.shape[1], np.float64)
+        if channel_mask is None
+        else np.asarray(channel_mask, np.float64)
+    )
+    return torch.as_tensor(
+        np.vstack([pts, mask[None]]), dtype=torch.float32, device=device
+    )
+
+
+def bandpass_window(pw):
+    """Compact probe window [C, W] -> its 3-tap bandpass [C, W-2]
+    (``ops.delay.bandpass_ma`` along time).  The bandpass commutes with the
+    shift stencil, so the probe beams come out band-passed."""
+    return 0.5 * pw[:, 1:-1] - 0.25 * (pw[:, 2:] + pw[:, :-2])
+
+
+def _consts(probe_layout, taps, theta_limit):
+    """Host constants the kernel and the twin share, rounded to f32 once:
+    the probe ring's unit (cos, sin) per azimuth, the Blackman window, and
+    sin/cos of the theta limit."""
+    deg = _QUADRANT_DEG if probe_layout == "quadrant" else _NEARBY_DEG
+    base = np.deg2rad(np.asarray(deg, np.float64))
+    f32 = lambda v: [float(x) for x in np.asarray(v, np.float32)]  # noqa: E731
+    return {
+        "cos_b": f32(np.cos(base)),
+        "sin_b": f32(np.sin(base)),
+        "blackman": f32(np.blackman(taps)),
+        "sin_tl": f32([np.sin(theta_limit)])[0],
+        "cos_tl": f32([np.cos(theta_limit)])[0],
+    }
+
+
+def _probe_dirs(theta, phi, spread, k):
+    """Unit steering components (ux, uy, uz), each [4, P], of the 4 probes
+    around every row: the probe ring at inclination ``spread`` rotated by
+    Rz(phi) Ry(rt), with the FoV-edge back-off, and pulled to the theta
+    limit at the same azimuth in Cartesian form (no inverse trig)."""
+    near = theta + spread > PI_HALF
+    rt = torch.where(near, theta - spread, theta)
+    c_t, s_t = torch.cos(rt), torch.sin(rt)
+    c_p, s_p = torch.cos(phi), torch.sin(phi)
+    sin_sp, cos_sp = torch.sin(spread), torch.cos(spread)
+    us = []
+    for cb, sb in zip(k["cos_b"], k["sin_b"]):
+        bx = sin_sp * cb
+        by = sin_sp * sb
+        vx = c_t * bx + s_t * cos_sp
+        vz = -s_t * bx + c_t * cos_sp
+        wx = c_p * vx - s_p * by
+        wy = s_p * vx + c_p * by
+        clipped = vz < k["cos_tl"]
+        r = torch.clamp(torch.sqrt(wx * wx + wy * wy), min=1e-12)
+        ux = torch.where(clipped, k["sin_tl"] * wx / r, wx)
+        uy = -torch.where(clipped, k["sin_tl"] * wy / r, wy)
+        uz = torch.where(clipped, torch.full_like(vz, k["cos_tl"]), vz)
+        us.append((ux, uy, uz))
+    return tuple(torch.stack([u[i] for u in us]) for i in range(3))
+
+
+def _stencil(ux, uy, uz, xyz, span, taps, interp, fir_phases, blackman):
+    """Directions [R] -> (shift [R, C] long, weights [R, C, taps] f32): the
+    min-subtracted delays split at ``shift = (span - taps) - floor(tau)``,
+    weighted ``[frac, 1-frac]`` (linear) or by the closed-form windowed-sinc
+    row at the quantized fraction (FIR), times the channel mask.  The min
+    runs over all channels, masked ones included."""
+    px, py, pz, mask = xyz[0], xyz[1], xyz[2], xyz[3]
+    tau = ux[:, None] * px + uy[:, None] * py + uz[:, None] * pz
+    tau = torch.clamp(
+        tau - tau.amin(dim=1, keepdim=True), 0.0, float(span - taps)
+    )
+    whole = torch.floor(tau)
+    frac = tau - whole
+    shift = (span - taps) - whole.to(torch.long)
+    if interp == "linear":
+        w = torch.stack([frac, 1.0 - frac], dim=-1)
+    else:
+        fq = torch.round(frac * (fir_phases - 1)) / float(fir_phases - 1)
+        d = dl.FIR_DEFAULT_CENTER - fq
+        sin_pd = torch.sin(math.pi * d)     # sin(pi(t - d)) = -(-1)^t sin(pi d)
+        hs = []
+        for t in range(taps):
+            x = math.pi * (float(t) - d)
+            sign = 1.0 if t % 2 == 1 else -1.0
+            near = torch.abs(x) < 1e-4
+            s = torch.where(
+                near, 1.0 - x * x * (1.0 / 6.0),
+                sign * sin_pd / torch.where(near, 1.0, x),
+            )
+            hs.append(s * blackman[t])
+        hsum = hs[0]
+        for h in hs[1:]:
+            hsum = hsum + h
+        w = torch.stack([h / hsum for h in hs], dim=-1)
+    return shift, w * mask[None, :, None]
+
+
+def _gather_beams(win, shift, w, n_out):
+    """beam[r, t] = sum_c sum_j w[r, c, j] * win[c, shift[r, c] + j + t]
+    for t < n_out, in f32."""
+    unf = win.unfold(1, n_out, 1)                       # [C, W-n_out+1, n_out]
+    cidx = torch.arange(win.shape[0], device=win.device)
+    beam = torch.zeros(
+        (shift.shape[0], n_out), dtype=torch.float32, device=win.device
+    )
+    for j in range(w.shape[-1]):
+        g = unf[cidx, shift + j].to(torch.float32)      # [R, C, n_out]
+        beam = beam + (w[..., j, None] * g).sum(dim=1)
+    return beam
+
+
+def swarm_chain_reference(
+    xyz, window_bp, window_raw, rows, jumps, reference, *,
+    block_index, n_iter, n_sub, refine, n_trackers, span,
+    taps=dl.LINEAR_TAPS, theta_limit, divisor, closeness, error_threshold,
+    probe_layout="quadrant", interp="linear", fir_phases=101,
+    min_power_fraction=0.0,
+):
+    """Plain PyTorch twin of the swarm-chain kernel, same operands and same
+    f32 arithmetic (probe weights rounded to the window's dtype before the
+    product, as the TPU kernel's ``w.astype(win.dtype)``).  Every row is
+    computed and inactive rows are masked back, which gives the same
+    values as the kernel's active-rows-only schedule.
+
+    Returns ``(state [8, P], mean [], beam [T])``: the updated first
+    :data:`STATE_ROWS` rows (tracking post-prune), the mean valid-seeker
+    power and the MISO audio beam."""
+    k = _consts(probe_layout, taps, theta_limit)
+    p = rows.shape[1]
+    t_len = window_raw.shape[1] - span
+    inv_div = 1.0 / float(divisor)
+    cos_cl = float(np.cos(closeness))
+    theta, phi, gt, gp, rad, err, tracking, start = rows[:STATE_ROWS].unbind(0)
+    rate, spread = rows[8], rows[9]
+    is_tracker, is_seeker, is_miso = rows[10] > 0.5, rows[11] > 0.5, rows[12] > 0.5
+    tgt_th, tgt_ph, tgt_va = rows[13], rows[14], rows[15]
+    row_idx = torch.arange(p, device=rows.device)
+    nt = n_trackers
+    quadrant = probe_layout == "quadrant"
+    mean = torch.zeros((), dtype=torch.float32, device=rows.device)
+
+    def substep(active, theta, phi, gt, gp, rad, err):
+        ux, uy, uz = _probe_dirs(theta, phi, spread, k)          # [4, P]
+        shift, w = _stencil(
+            ux.reshape(-1), uy.reshape(-1), uz.reshape(-1), xyz, span, taps,
+            interp, fir_phases, k["blackman"],
+        )
+        w = w.to(window_bp.dtype).to(torch.float32)
+        beam = _gather_beams(window_bp, shift, w, t_len - 2)     # [4P, T-2]
+        q1, q2, q3, q4 = ((beam * beam).sum(dim=1) * inv_div).reshape(4, p)
+        total = torch.clamp(q1 + q2 + q3 + q4, min=1e-30)
+        if quadrant:
+            g_t = ((q1 + q2) - (q3 + q4)) / total
+            g_p = ((q1 + q4) - (q2 + q3)) / total
+        else:
+            g_t = (q1 - q3) / torch.clamp(torch.maximum(q1, q3), min=1e-30)
+            g_p = (q2 - q4) / torch.clamp(torch.maximum(q2, q4), min=1e-30)
+        e = torch.abs(g_t) + torch.abs(g_p)
+        r = total * 0.25
+        near = theta + spread > PI_HALF
+        adj = torch.where(near, theta - spread / 2.0, theta)
+        new_t = adj + rate * g_t
+        new_p = phi + (rate * g_p) / torch.sin(_EPS + new_t)
+        new_t = torch.clamp(new_t, 0.0, theta_limit)
+        new_p = new_p - torch.floor(new_p / _TWO_PI) * _TWO_PI
+        sel = lambda a, b: torch.where(active, a, b)  # noqa: E731
+        return (sel(new_t, theta), sel(new_p, phi), sel(g_t, gt),
+                sel(g_p, gp), sel(r, rad), sel(e, err))
+
+    def pick(mask, v):
+        return torch.where(mask, v, torch.zeros_like(v)).sum()
+
+    for it in range(n_iter):
+        trk_b = tracking > 0.5
+        for j in range(n_sub):
+            active = (is_tracker & trk_b) | (is_seeker & (j == 0))
+            if it * n_sub + j < refine:
+                active = active | is_miso
+            theta, phi, gt, gp, rad, err = substep(
+                active, theta, phi, gt, gp, rad, err
+            )
+        n_tracking = trk_b.sum().to(torch.float32)
+
+        # Merge close trackers (oldest / lowest index survives) and flag
+        # seekers inside a previously published target's capture zone.
+        cos_t, sin_t = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+        th_n, ph_n, st_n = theta[None, :nt], phi[None, :nt], start[None, :nt]
+        cos_ang = cos_t * torch.cos(th_n) + sin_t * torch.sin(th_n) * torch.cos(
+            phi[:, None] - ph_n
+        )
+        close = (
+            (cos_ang > cos_cl) & trk_b[:, None] & (tracking[None, :nt] > 0.5)
+            & (row_idx[:, None] != row_idx[None, :nt]) & is_tracker[:, None]
+        )
+        older = (start[:, None] > st_n) | (
+            (start[:, None] == st_n) & (row_idx[:, None] > row_idx[None, :nt])
+        )
+        t_th, t_ph = tgt_th[None, :nt], tgt_ph[None, :nt]
+        cos_tg = cos_t * torch.cos(t_th) + sin_t * torch.sin(t_th) * torch.cos(
+            phi[:, None] - t_ph
+        )
+        near_t = (cos_tg > cos_cl) & (tgt_va[None, :nt] > 0.5)
+        tracking = torch.where((close & older).any(dim=1), 0.0, tracking)
+        too_close = near_t.any(dim=1) & is_seeker
+
+        # Jump seekers out of capture zones (pre-drawn offsets).
+        j_theta = torch.clamp(theta + jumps[0, it], 0.0, theta_limit)
+        j_phi = phi + jumps[1, it]
+        j_phi = j_phi - torch.floor(j_phi / _TWO_PI) * _TWO_PI
+        theta = torch.where(too_close, j_theta, theta)
+        phi = torch.where(too_close, j_phi, phi)
+
+        # Promote the best converged seeker (first index of the max) to
+        # every free tracker.
+        valid = is_seeker & ~too_close
+        converged = valid & (err < error_threshold)
+        pm = torch.where(converged, rad, torch.full_like(rad, -3.0e38))
+        is_best = converged & (pm >= pm.max())
+        idx_best = torch.where(
+            is_best, row_idx, torch.full_like(row_idx, 2 ** 30)
+        ).min()
+        oh = row_idx == idx_best
+        better = (converged & (rad > 0.0)).any()
+        promote = better & (n_tracking < float(nt)) & ~(tracking > 0.5) & is_tracker
+        theta = torch.where(promote, pick(oh, theta), theta)
+        phi = torch.where(promote, pick(oh, phi), phi)
+        start = torch.where(promote, float(block_index), start)
+        tracking = torch.where(promote, 1.0, tracking)
+
+        n_valid = torch.clamp(valid.sum().to(torch.float32), min=1.0)
+        mean = torch.where(valid, rad, torch.zeros_like(rad)).sum() / n_valid
+
+    # Publish: prune weak / diverged trackers, then the sidelobe gate.
+    weak = (rad < mean) | (rad < reference) | (err > error_threshold)
+    tracking = torch.where(weak, 0.0, tracking)
+    if min_power_fraction > 0.0:
+        strongest = torch.where(
+            tracking > 0.5, rad, torch.zeros_like(rad)
+        ).max()
+        tracking = torch.where(
+            rad >= min_power_fraction * strongest, tracking, 0.0
+        )
+
+    # MISO audio beam at the listener row's final direction, in f32.
+    th_m, ph_m = pick(is_miso, theta), pick(is_miso, phi)
+    st_m, ct_m = torch.sin(th_m), torch.cos(th_m)
+    shift, w = _stencil(
+        (st_m * torch.cos(ph_m)).reshape(1), (-st_m * torch.sin(ph_m)).reshape(1),
+        ct_m.reshape(1), xyz, span, taps, interp, fir_phases, k["blackman"],
+    )
+    beam = _gather_beams(window_raw, shift, w, t_len)[0]
+    state = torch.stack([theta, phi, gt, gp, rad, err, tracking, start])
+    return state, mean, beam
+
+
+@functools.cache
+def _library():
+    from beamforming_lk_tpu_torch.ops import nvcc
+
+    lib = ctypes.CDLL(nvcc.build("swarm_chain", [_SOURCE]))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.swarm_chain_launch.argtypes = (
+        [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        + [i32] * 12 + [f32] * 8 + [ptr, ptr]
+    )
+    lib.swarm_chain_launch.restype = i32
+    lib.swarm_chain_error_string.argtypes = [i32]
+    lib.swarm_chain_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name, t, device, dtypes, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def swarm_chain(
+    xyz, window_bp, window_raw, rows, jumps, reference, *,
+    block_index, n_iter, n_sub, refine, n_trackers, span,
+    taps=dl.LINEAR_TAPS, theta_limit, divisor, closeness, error_threshold,
+    probe_layout="quadrant", interp="linear", fir_phases=101,
+    min_power_fraction=0.0,
+):
+    """The per-block swarm update (see the module docstring for operands).
+    Returns ``(state [8, P], mean [], beam [T])``; ``swarm_chain.launches``
+    counts kernel launches."""
+    kw = dict(
+        block_index=block_index, n_iter=n_iter, n_sub=n_sub, refine=refine,
+        n_trackers=n_trackers, span=span, taps=taps, theta_limit=theta_limit,
+        divisor=divisor, closeness=closeness, error_threshold=error_threshold,
+        probe_layout=probe_layout, interp=interp, fir_phases=fir_phases,
+        min_power_fraction=min_power_fraction,
+    )
+    device = rows.device
+    if device.type == "cpu":
+        return swarm_chain_reference(
+            xyz, window_bp, window_raw, rows, jumps, reference, **kw
+        )
+    if device.type != "cuda":
+        raise RuntimeError(
+            f"swarm_chain runs on CUDA (kernel) or CPU (twin), not {device}"
+        )
+    c, p = xyz.shape[1], rows.shape[1]
+    t_len = window_raw.shape[1] - span
+    if taps > _MAX_TAPS or interp not in ("linear", "fir"):
+        raise ValueError(f"unsupported stencil: interp={interp} taps={taps}")
+    if t_len < 3:
+        raise ValueError(f"window_raw has {window_raw.shape[1]} columns; need span + T")
+    f32 = (torch.float32,)
+    _check("xyz", xyz, device, f32, (4, c))
+    _check("window_bp", window_bp, device, (torch.float32, torch.bfloat16),
+           (c, span + t_len - 2))
+    _check("window_raw", window_raw, device, f32, (c, span + t_len))
+    _check("rows", rows, device, f32, (len(ROW_FIELDS), p))
+    _check("jumps", jumps, device, f32, (2, n_iter, p))
+    _check("reference", reference, device, f32, ())
+    if not 0 < n_trackers <= p:
+        raise ValueError(f"n_trackers={n_trackers} outside (0, {p}]")
+    k = _consts(probe_layout, taps, theta_limit)
+    host = (ctypes.c_float * 24)(
+        *(k["cos_b"] + k["sin_b"] + k["blackman"]
+          + [0.0] * (_MAX_TAPS - taps))
+    )
+    state = torch.empty((STATE_ROWS, p), dtype=torch.float32, device=device)
+    mean = torch.empty((), dtype=torch.float32, device=device)
+    beam = torch.empty((t_len,), dtype=torch.float32, device=device)
+    lib = _library()
+    err = lib.swarm_chain_launch(
+        xyz.data_ptr(), window_bp.data_ptr(),
+        int(window_bp.dtype == torch.bfloat16), window_raw.data_ptr(),
+        rows.data_ptr(), jumps.data_ptr(), reference.data_ptr(),
+        state.data_ptr(), mean.data_ptr(), beam.data_ptr(),
+        c, p, t_len, span, taps, n_iter, n_sub, refine, n_trackers,
+        int(probe_layout == "quadrant"), int(interp == "fir"), fir_phases,
+        float(theta_limit), k["sin_tl"], k["cos_tl"], 1.0 / float(divisor),
+        float(np.cos(closeness)), float(error_threshold),
+        float(min_power_fraction), float(block_index),
+        ctypes.addressof(host), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            "swarm_chain kernel launch failed: "
+            + lib.swarm_chain_error_string(err).decode()
+        )
+    swarm_chain.launches += 1
+    return state, mean, beam
+
+
+swarm_chain.launches = 0

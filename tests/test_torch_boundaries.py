@@ -1,0 +1,107 @@
+"""Boundaries of the port: it loads no JAX, dispatches the swarm-chain
+kernel on the device of its tensors, and raises NotImplementedError for
+every configuration outside the ported slice."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
+from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
+from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
+from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = tcfg.realtime(tcfg.Config(
+    mimo=tcfg.MimoConfig(rows=16, columns=16),
+    tracker=tcfg.TrackerConfig(n_seekers=8, n_trackers=4),
+))
+
+_NO_JAX = """
+import sys
+import numpy as np
+from beamforming_lk_tpu_torch import Config, MimoConfig, realtime
+from beamforming_lk_tpu_torch.app import AwpuPipeline
+from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+pipe = AwpuPipeline(realtime(Config(mimo=MimoConfig(rows=16, columns=16))))
+for i in range(2):
+    out = pipe.process_block(plane_wave_block(pipe.points, [(0.5, 1.2, 5e3)],
+                                              i * 256, 256))
+assert np.isfinite(out.powers.numpy()).all() and out.miso_beam.shape == (256,)
+loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+          or m == "beamforming_lk_tpu" or m.startswith("beamforming_lk_tpu.")]
+assert not loaded, loaded
+print("no jax")
+"""
+
+
+def test_port_runs_two_blocks_without_loading_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "no jax" in proc.stdout
+
+
+def test_swarm_chain_rejects_devices_other_than_cuda_and_cpu():
+    meta = torch.device("meta")
+    p = 13
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ctk.swarm_chain(
+            torch.empty((4, 64), device=meta), torch.empty((64, 286), device=meta),
+            torch.empty((64, 288), device=meta),
+            torch.empty((16, p), device=meta), torch.empty((2, 1, p), device=meta),
+            torch.empty((), device=meta), block_index=0, n_iter=1, n_sub=1,
+            refine=1, n_trackers=4, span=32, theta_limit=1.5, divisor=256.0,
+            closeness=0.08, error_threshold=1.0,
+        )
+
+
+def _replace(cfg, part, **kw):
+    return dataclasses.replace(cfg, **{part: dataclasses.replace(
+        getattr(cfg, part), **kw)})
+
+
+_OUTSIDE = {
+    "mesh": dict(kwargs=dict(mesh=object())),
+    "fused_chunk": dict(cfg=_replace(SMALL, "dsp", fused_chunk=12)),
+    "tracker_off": dict(kwargs=dict(enable_tracker=False)),
+    "miso_off": dict(kwargs=dict(enable_miso=False)),
+    "iterations_10": dict(cfg=_replace(SMALL, "tracker", iterations=10)),
+    "probe_kernel_xla": dict(cfg=_replace(SMALL, "tracker", probe_kernel="xla")),
+    "dense_heatmap": dict(cfg=_replace(SMALL, "mimo", backend="dense")),
+    "gain_mask": dict(kwargs=dict(channel_mask=np.full(64, 0.5, np.float32))),
+    "non_lattice": dict(kwargs=dict(points=ant.create_antenna_grid() * np.array(
+        [[1.0], [1.0], [0.0]], np.float32) + np.linspace(0, 0.01, 64)[None])),
+    "phat": dict(cfg=_replace(SMALL, "mimo", phat=True)),
+    "mvdr": dict(kwargs=dict(heatmap_mode="mvdr")),
+    "music": dict(kwargs=dict(heatmap_mode="music")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_OUTSIDE))
+def test_outside_the_slice_raises(case):
+    spec = _OUTSIDE[case]
+    with pytest.raises(NotImplementedError):
+        AwpuPipeline(spec.get("cfg", SMALL), **spec.get("kwargs", {}))
+
+
+@pytest.mark.parametrize("method", ["calibrate", "save", "restore"])
+def test_state_io_and_calibration_raise(method):
+    pipe = AwpuPipeline(SMALL, enable_mimo=False)
+    args = () if method == "calibrate" else ("state.npz",)
+    with pytest.raises(NotImplementedError):
+        getattr(pipe, method)(*args)
+
+
+def test_heatmap_can_be_disabled():
+    pipe = AwpuPipeline(SMALL, enable_mimo=False)
+    out = pipe.process_block(np.zeros((64, 256), np.float32))
+    assert not out.powers.any() and out.miso_beam.shape == (256,)
