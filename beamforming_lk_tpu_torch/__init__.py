@@ -3,9 +3,11 @@
 Same layout and names as the JAX package (``ops``, ``io``, ``models``,
 ``app``), written for PyTorch on an NVIDIA H100.  The port carries the live
 per-block step (``app.awpu.AwpuPipeline.process_block`` under
-``config.realtime``); its one hand-written kernel, the whole per-block
-swarm update, is ``csrc/swarm_chain.cu``.  The JAX package stays beside it
-as the reference; this package imports no JAX.
+``config.realtime``) and the chunked replay (``process_blocks``).  Its
+hand-written kernels are the per-block and K-block swarm updates
+(``csrc/swarm_chain.cu``) and the heatmap's power stage
+(``csrc/power_matmul.cu``).  The JAX package stays beside it as the
+reference; this package imports no JAX.
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,16 @@ tracker swarm with the MISO listener through the swarm-chain kernel, and
 the published outputs.  The block counter and the heatmap decimation are
 host-side, so a block issues its device work without waiting on it.
 
-Configurations outside this slice raise ``NotImplementedError``.
+Replay (``AwpuPipeline.process_blocks``) runs ``fused_chunk`` blocks per
+launch of the chunk kernel, with their heatmaps at the decimated positions
+batched into one call of the chunked heatmap (the JAX package's
+``_fused_chunk_scan``); a pipeline with the tracker and MISO off replays
+``heatmap_chunk`` blocks per batched heatmap (``_chunk_scan``).  Per-block
+outputs equal :meth:`AwpuPipeline.process_block`'s: a batch that does not
+split into whole chunks, or that starts off the decimation phase, runs
+block by block.
+
+Configurations outside the ported slices raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,12 +63,30 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the torch package yet")
 
 
+def _ema_chain(maxes, prev_max, alpha: float):
+    """All n EMA states ``m_j = a*max_j + (1-a)*m_{j-1}`` of a chunk's map
+    maxima [n] in closed form (the recurrence is linear)."""
+    decay = (1.0 - alpha) ** torch.arange(
+        maxes.shape[0] + 1, dtype=maxes.dtype, device=maxes.device
+    )
+    contrib = torch.cumsum(alpha * maxes / decay[:-1], dim=0) * decay[:-1]
+    return contrib + prev_max * decay[1:]
+
+
+def _zero_targets(lead, n: int, device) -> tk.Targets:
+    z = torch.zeros(lead + (n,), dtype=torch.float32, device=device)
+    return tk.Targets(z, z, z, z, z,
+                      torch.zeros(lead + (n,), dtype=torch.bool, device=device))
+
+
 class AwpuStep(nn.Module):
-    """The per-block step: ``forward(state, block, generator=None,
-    draws=None) -> (state, AwpuOutputs)``."""
+    """The per-block step, ``forward(state, block, generator=None,
+    draws=None) -> (state, AwpuOutputs)``, and the chunked replay of a
+    batch, :meth:`scan_chunks`.  ``enable_swarm=False`` is the heatmap-only
+    pipeline: no swarm, zero targets and a zero beam."""
 
     def __init__(self, points, cfg, channel_mask=None, enable_mimo=True,
-                 device=None):
+                 enable_swarm=True, device=None):
         super().__init__()
         dsp, arr = cfg.dsp, cfg.array
         self.cfg = cfg
@@ -90,10 +117,23 @@ class AwpuStep(nn.Module):
                 )
         span = dl.probe_span(points, arr.samples_per_meter, self.taps,
                              dsp.shift_range)
-        self.swarm_step = tk.make_fused_step_impl(
-            cfg.tracker, dsp, arr, points, channel_mask, probe_span=span,
-            device=device,
-        )
+        self.swarm_step = self.chunk_step = None
+        if enable_swarm:
+            self.swarm_step = tk.make_fused_step_impl(
+                cfg.tracker, dsp, arr, points, channel_mask, probe_span=span,
+                device=device,
+            )
+        # Replay chunk: K-block kernel launches with the swarm, batched
+        # heatmaps without it; the heatmap decimation stays chunk-aligned.
+        self.every = max(cfg.mimo.heatmap_every, 1) if enable_mimo else 1
+        chunk = dsp.fused_chunk if enable_swarm else (
+            cfg.mimo.heatmap_chunk if enable_mimo else 0)
+        self.chunk = chunk if chunk > 1 and chunk % self.every == 0 else 0
+        if self.chunk and enable_swarm:
+            self.chunk_step = tk.make_fused_chunk_impl(
+                cfg.tracker, dsp, arr, points, channel_mask, probe_span=span,
+                device=device,
+            )
 
     def forward(self, state: AwpuState, block, generator=None, draws=None):
         cfg, dsp = self.cfg, self.cfg.dsp
@@ -105,40 +145,117 @@ class AwpuStep(nn.Module):
             powers = fd.fft_heatmap_powers(window, self.fft_model)
             a = cfg.mimo.ema_alpha
             prev_max = torch.max(powers) * a + (1.0 - a) * state.prev_max
-        swarm, targets, miso_p, miso_beam = self.swarm_step(
-            state.swarm, state.miso.particle, window, state.block_index,
-            generator=generator, draws=draws,
-        )
+        swarm, miso = state.swarm, state.miso
+        if self.swarm_step is None:
+            targets = _zero_targets((), cfg.tracker.n_trackers, block.device)
+            miso_beam = torch.zeros((dsp.block_size,), dtype=torch.float32,
+                                    device=block.device)
+        else:
+            swarm, targets, miso_p, miso_beam = self.swarm_step(
+                state.swarm, state.miso.particle, window, state.block_index,
+                generator=generator, draws=draws,
+            )
+            miso = miso._replace(particle=miso_p)
         new_state = AwpuState(
             history=history,
             swarm=swarm,
-            miso=state.miso._replace(particle=miso_p),
+            miso=miso,
             prev_max=prev_max,
             block_index=state.block_index + 1,
             powers=powers,
         )
         return new_state, AwpuOutputs(powers, targets, miso_beam, prev_max)
 
+    def takes_chunks(self, state: AwpuState, n_blocks: int) -> bool:
+        """Whether :meth:`scan_chunks` may replay ``n_blocks`` blocks from
+        ``state``: whole chunks, starting on the decimation phase (the JAX
+        package's chunk assumes that phase but does not check it)."""
+        return (self.chunk > 0 and n_blocks % self.chunk == 0
+                and state.block_index % self.every == 0)
+
+    def scan_chunks(self, state: AwpuState, blocks, generator=None,
+                    draws=None):
+        """Replay [M, C, T] blocks in chunks of :attr:`chunk` (see
+        :meth:`takes_chunks`); returns ``(state, AwpuOutputs)`` with outputs
+        stacked per block.  ``draws`` are the per-block draws stacked on a
+        leading axis of M (``FusedChunkStep``)."""
+        cfg, dsp = self.cfg, self.cfg.dsp
+        ck, every, t_len = self.chunk, self.every, dsp.block_size
+        m, c = blocks.shape[0], blocks.shape[1]
+        h = state.history.shape[-1]
+        # The whole replay behind the history; chunk i's windows are a view
+        # of its first h + (i+1)*ck*T samples.
+        big = torch.cat(
+            [state.history, blocks.permute(1, 0, 2).reshape(c, m * t_len)],
+            dim=1,
+        )
+        swarm, miso_p, prev_max = state.swarm, state.miso.particle, state.prev_max
+        bi, powers_last = state.block_index, state.powers
+        outs = []
+        for i in range(m // ck):
+            windows = rg.ring_windows(big[:, :h + (i + 1) * ck * t_len], t_len,
+                                      dsp.shift_range, self.taps, ck)
+            if self.chunk_step is None:
+                targets_k = _zero_targets((ck,), cfg.tracker.n_trackers,
+                                          blocks.device)
+                beams = torch.zeros((ck, t_len), dtype=torch.float32,
+                                    device=blocks.device)
+            else:
+                d_i = None if draws is None else tuple(
+                    d[i * ck:(i + 1) * ck] for d in draws)
+                swarm, targets_k, miso_p, beams = self.chunk_step(
+                    swarm, miso_p, windows, bi, generator=generator, draws=d_i,
+                )
+            if self.enable_mimo:
+                maps = fd.fft_heatmap_powers_chunked(windows[::every],
+                                                     self.fft_model)
+                emas = _ema_chain(maps.amax(dim=-1), prev_max,
+                                  cfg.mimo.ema_alpha)
+                powers_k = maps.repeat_interleave(every, dim=0)
+                prev_k = emas.repeat_interleave(every)
+                prev_max, powers_last = emas[-1], maps[-1]
+            else:
+                powers_k = powers_last.expand(ck, -1)
+                prev_k = prev_max.expand(ck)
+            outs.append(AwpuOutputs(powers_k, targets_k, beams, prev_k))
+            bi += ck
+        stacked = AwpuOutputs(
+            powers=torch.cat([o.powers for o in outs]),
+            targets=tk.Targets(*(torch.cat(f) for f in
+                                 zip(*(o.targets for o in outs)))),
+            miso_beam=torch.cat([o.miso_beam for o in outs]),
+            prev_max=torch.cat([o.prev_max for o in outs]),
+        )
+        new_state = AwpuState(
+            history=big[:, -h:].contiguous(),
+            swarm=swarm,
+            miso=state.miso._replace(particle=miso_p),
+            prev_max=prev_max,
+            block_index=bi,
+            powers=powers_last,
+        )
+        return new_state, stacked
+
 
 def make_awpu_step(points, cfg, channel_mask=None, mesh=None,
                    enable_mimo: bool = True, enable_tracker: bool = True,
                    enable_miso: bool = True, device=None) -> AwpuStep:
-    """Build the per-block step for one device.  Raises
-    ``NotImplementedError`` for what the slice does not carry: a mesh, the
-    unfused tracker/MISO path (either disabled, or more than 4 iterations),
-    the K-block replay kernel, and every probe backend but the kernel."""
+    """Build the step for one device: the fused tracker + MISO step, or with
+    both off the heatmap-only step.  Raises ``NotImplementedError`` for what
+    the port does not carry: a mesh, the unfused tracker/MISO path (one of
+    the two disabled, or more than 4 iterations), and every probe backend
+    but the kernel."""
     if mesh is not None:
         raise _not_ported("multi-device execution (mesh)")
     tc = cfg.tracker
-    if not (enable_tracker and enable_miso and tc.iterations <= 4
-            and tc.iterations * tc.tracker_steps >= 3):
+    swarm = enable_tracker or enable_miso
+    if swarm and not (enable_tracker and enable_miso and tc.iterations <= 4
+                      and tc.iterations * tc.tracker_steps >= 3):
         raise _not_ported(
-            "the unfused tracker/MISO path (tracker or MISO disabled, or "
-            "iterations > 4)"
+            "the unfused tracker/MISO path (tracker or MISO disabled alone, "
+            "or iterations > 4)"
         )
-    if cfg.dsp.fused_chunk > 1:
-        raise _not_ported("the K-block replay kernel (fused_chunk > 1)")
-    return AwpuStep(points, cfg, channel_mask, enable_mimo, device)
+    return AwpuStep(points, cfg, channel_mask, enable_mimo, swarm, device)
 
 
 def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device=None,
@@ -163,7 +280,8 @@ def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device=None,
 class AwpuPipeline:
     """Host-side orchestrator for one array link (the reference's
     ``AWProcessingUnit``): owns the step, its state and its generator, and
-    exposes ``process_block``, ``steer``, ``targets`` and ``heatmap``."""
+    exposes ``process_block``, ``process_blocks``, ``steer``, ``targets``
+    and ``heatmap``."""
 
     def __init__(self, cfg, points=None, channel_mask=None, mesh=None,
                  seed: int = 0, enable_mimo: bool = True,
@@ -203,10 +321,32 @@ class AwpuPipeline:
         )
         return self.last
 
-    def process_blocks(self, blocks) -> AwpuOutputs:
-        """Drive M stacked blocks [M, C, T] one at a time; outputs stack on
-        the leading axis (the K-block replay kernel is not ported yet)."""
-        outs = [self.process_block(b) for b in blocks]
+    def process_blocks(self, blocks, draws=None) -> AwpuOutputs:
+        """Drive M stacked blocks [M, C, T]; outputs stack on the leading
+        axis and equal M calls of :meth:`process_block`.  Whole chunks that
+        start on the heatmap decimation phase replay through
+        :meth:`AwpuStep.scan_chunks` (one chunk-kernel launch per
+        ``fused_chunk`` blocks); any other batch runs block by block.
+        ``draws`` are :meth:`process_block`'s draws stacked over the M
+        blocks."""
+        blocks = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
+        if self.step.takes_chunks(self.state, blocks.shape[0]):
+            self.state, stacked = self.step.scan_chunks(
+                self.state, blocks, self.generator, draws
+            )
+            self.last = AwpuOutputs(
+                powers=stacked.powers[-1],
+                targets=tk.Targets(*(f[-1] for f in stacked.targets)),
+                miso_beam=stacked.miso_beam[-1],
+                prev_max=stacked.prev_max[-1],
+            )
+            return stacked
+        outs = [
+            self.process_block(
+                b, draws=None if draws is None else tuple(d[i] for d in draws)
+            )
+            for i, b in enumerate(blocks)
+        ]
         return AwpuOutputs(
             powers=torch.stack([o.powers for o in outs]),
             targets=tk.Targets(*(torch.stack(f) for f in

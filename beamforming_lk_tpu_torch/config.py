@@ -2,7 +2,7 @@
 
 The dataclasses carry the same fields and defaults as
 ``beamforming_lk_tpu/config.py`` (``tests/test_torch_ops.py`` pins them
-field for field), restricted to the four the per-block step reads.  They
+field for field), restricted to the four the AWPU step reads.  They
 are defined here rather than imported so that the port, and a program
 that drives it, load no module of the JAX package.
 """
@@ -46,7 +46,7 @@ class DspConfig:
     normalization: float = float(2 ** 23)
     compute: str = "float32"     # heatmap matmul input dtype
     probe_compute: str = "float32"  # tracker/MISO probe-beam input dtype
-    fused_chunk: int = 0         # K-block replay kernel; not ported (raises)
+    fused_chunk: int = 0         # blocks per launch of the replay chunk kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +100,7 @@ class TrackerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Top-level configuration of the per-block step."""
+    """Top-level configuration of the AWPU step."""
 
     array: ArrayConfig = dataclasses.field(default_factory=ArrayConfig)
     dsp: DspConfig = dataclasses.field(default_factory=DspConfig)
@@ -109,16 +109,17 @@ class Config:
 
 
 def realtime(cfg: Config) -> Config:
-    """The live deployment profile: bf16 compute, the separable-FFT heatmap
-    recomputed every 3rd block, 2 swarm iterations per block and the
-    swarm-chain kernel.  Same values as the JAX package's
-    ``Config.realtime()`` except ``fused_chunk``, which stays as given (the
-    K-block replay kernel is not ported), and ``probe_kernel``, which is
-    ``"pallas"`` on every device."""
+    """The deployment profile: bf16 compute, the separable-FFT heatmap
+    recomputed every 3rd block, 2 swarm iterations per block, the
+    swarm-chain kernel for live blocks and 12 blocks per launch of the
+    chunk kernel for replay (``process_blocks``).  Same values as the JAX
+    package's ``Config.realtime()`` on its accelerator: ``probe_kernel`` is
+    ``"pallas"`` and ``fused_chunk`` 12 on every device."""
     return dataclasses.replace(
         cfg,
         dsp=dataclasses.replace(
-            cfg.dsp, compute="bfloat16", probe_compute="bfloat16"
+            cfg.dsp, compute="bfloat16", probe_compute="bfloat16",
+            fused_chunk=12,
         ),
         mimo=dataclasses.replace(cfg.mimo, backend="fft", heatmap_every=3),
         tracker=dataclasses.replace(

@@ -24,11 +24,10 @@ def _particles(p, device) -> Particles:
                        for f in Particles._fields))
 
 
-def awpu_state_from_jax(state, device=None) -> AwpuState:
-    """A JAX ``AwpuState`` whose leaves are numpy arrays (its PRNG key is
-    not read) -> the port's ``AwpuState``; the counters become host ints."""
-    sw = state.swarm
-    swarm = SwarmState(
+def swarm_state_from_jax(sw, device=None) -> SwarmState:
+    """A JAX ``SwarmState`` whose leaves are numpy arrays (its PRNG key is
+    not read) -> the port's ``SwarmState``; the counter becomes a host int."""
+    return SwarmState(
         seekers=_particles(sw.seekers, device),
         trackers=_particles(sw.trackers, device),
         tracking=_t(sw.tracking, device, torch.bool),
@@ -40,9 +39,14 @@ def awpu_state_from_jax(state, device=None) -> AwpuState:
         target_phi=_t(sw.target_phi, device, torch.float32),
         target_valid=_t(sw.target_valid, device, torch.bool),
     )
+
+
+def awpu_state_from_jax(state, device=None) -> AwpuState:
+    """A JAX ``AwpuState`` whose leaves are numpy arrays (its PRNG key is
+    not read) -> the port's ``AwpuState``; the counters become host ints."""
     return AwpuState(
         history=_t(state.history, device, torch.float32),
-        swarm=swarm,
+        swarm=swarm_state_from_jax(state.swarm, device),
         miso=MisoState(
             particle=_particles(state.miso.particle, device),
             tracking=_t(state.miso.tracking, device, torch.bool),
@@ -54,19 +58,20 @@ def awpu_state_from_jax(state, device=None) -> AwpuState:
 
 
 def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
-    """The JAX ``FftHeatmapModel`` (``power_path="fused"``, no PHAT, no
+    """The JAX ``FftHeatmapModel`` (any ``power_path``; no PHAT, no
     lattice-order promise) -> the port's module with the same constants."""
-    if model.phat or model.power_path != "fused" or model.channel_perm is not None:
+    if model.phat or model.channel_perm is not None:
         raise NotImplementedError(
-            "only the fused-power, non-PHAT heatmap model is ported"
+            "the PHAT and lattice-order heatmap models are not ported"
         )
     np_ = lambda a: None if a is None else np.asarray(a)  # noqa: E731
     dead = None if model.dead is None else tuple(np.asarray(a) for a in model.dead)
     return FftHeatmapModel(
         ex_s=np_(model.ex_s), ey_s=np_(model.ey_s), dft=np_(model.dft),
-        pow_ri=np_(model.pow_ri), perm_matrix=np_(model.perm_matrix),
-        src_map=np_(model.src_map), dead=dead, rows=model.rows,
-        columns=model.columns, block_size=model.block_size,
-        fft_len=model.fft_len, n_active=model.n_active,
-        compute=model.compute, device=device,
+        idft=np_(model.idft), pow_ri=np_(model.pow_ri),
+        perm_matrix=np_(model.perm_matrix), src_map=np_(model.src_map),
+        dead=dead, rows=model.rows, columns=model.columns,
+        block_size=model.block_size, fft_len=model.fft_len,
+        n_active=model.n_active, use_bandpass=model.use_bandpass,
+        compute=model.compute, power_path=model.power_path, device=device,
     )

@@ -1,16 +1,28 @@
-// The whole per-block swarm update of the acoustic tracker as one CUDA kernel.
+// The whole per-block swarm update of the acoustic tracker as CUDA kernels.
 //
-// Replaces beamforming_lk_tpu/ops/pallas_tracker.py::swarm_chain_pallas
-// (kernel _swarm_kernel, block update _make_swarm_block_update): n_iter
-// iterations of [n_sub chained 4-probe monopulse sub-steps + merge + seeker
-// jump + promote], then the publish prune (seeker mean, reference power,
-// sidelobe gate) and the f32 MISO audio beam at the listener's direction.
-// The plain PyTorch twin is ops/cuda_tracker.py::swarm_chain_reference.
+// swarm_chain_kernel replaces beamforming_lk_tpu/ops/pallas_tracker.py::
+// swarm_chain_pallas (kernel _swarm_kernel, block update
+// _make_swarm_block_update): n_iter iterations of [n_sub chained 4-probe
+// monopulse sub-steps + merge + seeker jump + promote], then the publish
+// prune (seeker mean, reference power, sidelobe gate) and the f32 MISO
+// audio beam at the listener's direction.
 //
-// What bounds it on an H100: it runs as ONE thread block on one SM, and
+// swarm_chunk_kernel replaces swarm_chunk_pallas (kernel
+// _swarm_chunk_kernel): K consecutive blocks of that update in one launch.
+// Before block k it applies the seeker reset of the reset table; after it,
+// it writes block k's state, mean and beam, and carries the published
+// trackers into block k+1's target rows.  Both kernels call the same
+// __device__ block_update over the particle rows in shared memory, as the
+// TPU kernels share _make_swarm_block_update, so block k of a chunk equals
+// k+1 calls of the single-block kernel.  The plain PyTorch twins are
+// ops/cuda_tracker.py::swarm_chain_reference and swarm_chunk_reference.
+//
+// What bounds them on an H100: each runs as ONE thread block on one SM, and
 // each sub-step's probe directions depend on the previous sub-step's
-// powers, so it is latency-bound by that chain, not by bytes or FLOPs (a
-// block's window is 37 KB at 64 mics in bf16, 163 KB at 256 mics).
+// powers, so they are latency-bound by that chain, not by bytes or FLOPs (a
+// block's window is 37 KB at 64 mics in bf16, 163 KB at 256 mics).  The
+// chunk kernel runs K times the single-block chain back to back on that SM,
+// so it saves host launches and operand prep, not device time.
 //
 // Why it gathers: the TPU kernel multiplies a dense one-hot stencil
 // [4P, span*C] with an s-major window because Mosaic has no gathers.  Here
@@ -20,13 +32,15 @@
 // inactive in a sub-step are not computed at all: they keep their values,
 // exactly as in the masked computation.  One warp owns one probe row at a
 // time (lanes over time samples, a shuffle reduction for the power); the
-// iteration boundaries run in warp 0 with lanes over particle rows.
+// iteration boundaries run in warp 0 with lanes over particle rows.  The
+// chunk kernel stages one block's window at a time (the TPU kernel holds
+// all K in VMEM; two 256-mic windows do not fit in 227 KB).
 //
 // Later work: spread a sub-step's probe rows over several SMs (a cluster
 // sharing the window through distributed shared memory), stage the window
-// with TMA, run the contraction on tensor cores over a banded stencil, keep
-// the K-block replay loop (swarm_chunk_pallas) inside the kernel, and
-// capture the per-block host ops around it in a CUDA graph.
+// with TMA and overlap block k+1's window load with block k's chain, run
+// the contraction on tensor cores over a banded stencil, and capture the
+// per-block host ops of the live path in a CUDA graph.
 //
 // Numerics: the probe weights are rounded to the window's dtype before the
 // product and every sum is f32 (as w.astype(win.dtype) with an f32 dot);
@@ -57,22 +71,53 @@ enum Row {
 };
 constexpr int kStateRows = 8;
 
+// Launch operands.  Per-block operands are stacked on a leading block axis
+// of n_blocks (1 for the single-block kernel).
 struct Params {
-  const float* xyz;        // [4, C]
-  const void* win_bp;      // [C, span+T-2] f32 or bf16
-  const float* win_raw;    // [C, span+T]
-  const float* rows_in;    // [NROWS, P]
-  const float* jumps;      // [2, n_iter, P]
-  const float* reference;  // []
-  float* out_rows;         // [kStateRows, P]
-  float* out_mean;         // []
-  float* out_beam;         // [T]
+  const float* xyz;         // [4, C]
+  const void* win_bp;       // [K, C, span+T-2] f32 or bf16
+  const float* win_raw;     // [K, C, span+T]
+  const float* rows_in;     // [NROWS, P] rows entering block 0
+  const float* jumps;       // [K, 2, n_iter, P]
+  const float* resets;      // [K, 3, P] (flag, theta, phi); chunk kernel only
+  const float* references;  // [K]
+  float* out_rows;          // [K, kStateRows, P]
+  float* out_mean;          // [K]
+  float* out_beam;          // [K, T]
+  long long block_index0;   // global index of block 0
+  int n_blocks;
   int C, P, T, span, taps, n_iter, n_sub, refine, n_trackers;
   int quadrant, fir, fir_phases, win_smem;
   float theta_limit, sin_tl, cos_tl, inv_div, cos_closeness;
-  float error_threshold, min_power_fraction, block_index;
+  float error_threshold, min_power_fraction;
   float cos_b[4], sin_b[4], blackman[kMaxTaps];
 };
+
+// Block k's slices of the stacked operands.
+struct Block {
+  const void* win_bp;
+  const float* win_raw;
+  const float* jumps;
+  float reference, block_index;
+  float* out_rows;
+  float* out_mean;
+  float* out_beam;
+};
+
+template <typename WT>
+__device__ Block block_at(const Params& p, int k) {
+  const size_t ldw = p.span + p.T - 2, ldr = p.span + p.T;
+  Block b;
+  b.win_bp = static_cast<const WT*>(p.win_bp) + (size_t)k * p.C * ldw;
+  b.win_raw = p.win_raw + (size_t)k * p.C * ldr;
+  b.jumps = p.jumps + (size_t)k * 2 * p.n_iter * p.P;
+  b.reference = p.references[k];
+  b.block_index = (float)(p.block_index0 + k);
+  b.out_rows = p.out_rows + (size_t)k * kStateRows * p.P;
+  b.out_mean = p.out_mean + k;
+  b.out_beam = p.out_beam + (size_t)k * p.T;
+  return b;
+}
 
 struct Layout {
   size_t win, w, sh, rows, pow, act, flags, list, misc, total;
@@ -251,8 +296,9 @@ __device__ float warp_probe_power(const WT* win, int ldw, int C, int taps,
 // trackers (oldest / lowest index survives), jump seekers out of the
 // previous block's published capture zones, promote the best converged
 // seeker to every free tracker, and the mean valid-seeker power.
-__device__ void iteration_boundary(const Params& p, float* rows, int* flags,
-                                   float* misc, int it, int lane) {
+__device__ void iteration_boundary(const Params& p, const Block& b,
+                                   float* rows, int* flags, float* misc,
+                                   int it, int lane) {
   const int P = p.P, nt = p.n_trackers;
   float* th = rows + TH * P;
   float* ph = rows + PH * P;
@@ -293,8 +339,8 @@ __device__ void iteration_boundary(const Params& p, float* rows, int* flags,
   }
   __syncwarp();
 
-  const float* jt = p.jumps + (size_t)it * P;
-  const float* jp = p.jumps + (size_t)(p.n_iter + it) * P;
+  const float* jt = b.jumps + (size_t)it * P;
+  const float* jp = b.jumps + (size_t)(p.n_iter + it) * P;
   for (int r = lane; r < P; r += 32) {
     if (stop[r]) trk[r] = 0.0f;
     if (too_close[r]) {
@@ -335,7 +381,7 @@ __device__ void iteration_boundary(const Params& p, float* rows, int* flags,
       if (!(trk[r] > 0.5f) && ft[r] > 0.5f) {
         th[r] = th_b;
         ph[r] = ph_b;
-        start[r] = p.block_index;
+        start[r] = b.block_index;
         trk[r] = 1.0f;
       }
     }
@@ -346,13 +392,13 @@ __device__ void iteration_boundary(const Params& p, float* rows, int* flags,
 
 // Publish boundary, run by warp 0: prune weak or diverged trackers, then
 // the sidelobe gate against the strongest tracked power.
-__device__ void publish_prune(const Params& p, float* rows, const float* misc,
-                              int lane) {
+__device__ void publish_prune(const Params& p, const Block& b, float* rows,
+                              const float* misc, int lane) {
   const int P = p.P;
   const float* rad = rows + RAD * P;
   const float* err = rows + ERR * P;
   float* trk = rows + TRK * P;
-  const float mean = misc[0], ref = *p.reference;
+  const float mean = misc[0], ref = b.reference;
   for (int r = lane; r < P; r += 32)
     if (rad[r] < mean || rad[r] < ref || err[r] > p.error_threshold)
       trk[r] = 0.0f;
@@ -368,33 +414,58 @@ __device__ void publish_prune(const Params& p, float* rows, const float* misc,
   __syncwarp();
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(kThreads, 1)
-    swarm_chain_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = p.C, P = p.P, T = p.T;
-  const Layout L = make_layout(C, P, T, p.span, p.taps, (int)sizeof(WT),
-                               p.win_smem != 0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* rows = reinterpret_cast<float*>(smem + L.rows);
-  float* pow4 = reinterpret_cast<float*>(smem + L.pow);
-  int* act = reinterpret_cast<int*>(smem + L.act);
-  int* flags = reinterpret_cast<int*>(smem + L.flags);
-  int* list = reinterpret_cast<int*>(smem + L.list);
-  float* misc = reinterpret_cast<float*>(smem + L.misc);
-  float* sw = reinterpret_cast<float*>(smem + L.w) + (size_t)warp * C * p.taps;
-  int* ssh = reinterpret_cast<int*>(smem + L.sh) + (size_t)warp * C;
-  const int ldw = p.span + T - 2;
+// Shared-memory regions of the dynamic layout.
+struct Smem {
+  float* rows;
+  float* pow4;
+  int* act;
+  int* flags;
+  int* list;
+  float* misc;
+  float* sw;   // this warp's stencil weights
+  int* ssh;    // this warp's shifts
+  const float* sw0;
+  const int* ssh0;
+  void* win;
+};
 
-  const WT* win = static_cast<const WT*>(p.win_bp);
+__device__ Smem carve(const Params& p, const Layout& L, unsigned char* smem,
+                      int warp) {
+  Smem s;
+  s.rows = reinterpret_cast<float*>(smem + L.rows);
+  s.pow4 = reinterpret_cast<float*>(smem + L.pow);
+  s.act = reinterpret_cast<int*>(smem + L.act);
+  s.flags = reinterpret_cast<int*>(smem + L.flags);
+  s.list = reinterpret_cast<int*>(smem + L.list);
+  s.misc = reinterpret_cast<float*>(smem + L.misc);
+  s.sw = reinterpret_cast<float*>(smem + L.w) + (size_t)warp * p.C * p.taps;
+  s.ssh = reinterpret_cast<int*>(smem + L.sh) + (size_t)warp * p.C;
+  s.sw0 = reinterpret_cast<const float*>(smem + L.w);
+  s.ssh0 = reinterpret_cast<const int*>(smem + L.sh);
+  s.win = smem + L.win;
+  return s;
+}
+
+// One block's whole update over the particle rows in shared memory (the
+// counterpart of _make_swarm_block_update): stage the block's window, run
+// the iterations and the publish prune, write the block's state, mean and
+// MISO beam.  Called by every thread; ends with a barrier, so the caller
+// may touch the rows right after it.
+template <typename WT>
+__device__ void block_update(const Params& p, const Block& b, const Smem& s) {
+  const int C = p.C, P = p.P, T = p.T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldw = p.span + T - 2;
+  float* rows = s.rows;
+
+  const WT* win = static_cast<const WT*>(b.win_bp);
   if (p.win_smem) {
-    WT* s_win = reinterpret_cast<WT*>(smem + L.win);
+    WT* s_win = static_cast<WT*>(s.win);
     const size_t n = (size_t)C * ldw;
     for (size_t i = tid; i < n; i += kThreads) s_win[i] = win[i];
     win = s_win;
   }
-  for (int i = tid; i < NROWS * P; i += kThreads) rows[i] = p.rows_in[i];
-  if (tid == 0) misc[0] = 0.0f;
+  if (tid == 0) s.misc[0] = 0.0f;
   __syncthreads();
 
   float* th = rows + TH * P;
@@ -421,28 +492,28 @@ __global__ void __launch_bounds__(kThreads, 1)
           const bool a = (ft[r] > 0.5f && trk[r] > 0.5f) ||
                          (j == 0 && fs[r] > 0.5f) ||
                          (slot < p.refine && fm[r] > 0.5f);
-          act[r] = a;
-          if (a) list[1 + n++] = r;
+          s.act[r] = a;
+          if (a) s.list[1 + n++] = r;
         }
-        list[0] = n;
+        s.list[0] = n;
       }
       __syncthreads();
-      const int n_probe = 4 * list[0];
+      const int n_probe = 4 * s.list[0];
       for (int q = warp; q < n_probe; q += kWarps) {
-        const int r = list[1 + (q >> 2)], b = q & 3;
+        const int r = s.list[1 + (q >> 2)], pb = q & 3;
         float ux, uy, uz;
-        probe_dir(p, th[r], ph[r], spread[r], b, &ux, &uy, &uz);
-        warp_stencil<WT>(p, ux, uy, uz, true, sw, ssh, lane);
-        const float s =
-            warp_probe_power(win, ldw, C, p.taps, T - 2, sw, ssh, lane);
-        if (lane == 0) pow4[r * 4 + b] = s * p.inv_div;
+        probe_dir(p, th[r], ph[r], spread[r], pb, &ux, &uy, &uz);
+        warp_stencil<WT>(p, ux, uy, uz, true, s.sw, s.ssh, lane);
+        const float pw =
+            warp_probe_power(win, ldw, C, p.taps, T - 2, s.sw, s.ssh, lane);
+        if (lane == 0) s.pow4[r * 4 + pb] = pw * p.inv_div;
         __syncwarp();  // the scratch is rewritten by the next probe
       }
       __syncthreads();
       for (int r = tid; r < P; r += kThreads) {
-        if (!act[r]) continue;
-        const float q1 = pow4[r * 4], q2 = pow4[r * 4 + 1];
-        const float q3 = pow4[r * 4 + 2], q4 = pow4[r * 4 + 3];
+        if (!s.act[r]) continue;
+        const float q1 = s.pow4[r * 4], q2 = s.pow4[r * 4 + 1];
+        const float q3 = s.pow4[r * 4 + 2], q4 = s.pow4[r * 4 + 3];
         const float total = fmaxf(q1 + q2 + q3 + q4, 1e-30f);
         float g_t, g_p;
         if (p.quadrant) {
@@ -467,12 +538,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();
     }
-    if (warp == 0) iteration_boundary(p, rows, flags, misc, it, lane);
+    if (warp == 0) iteration_boundary(p, b, rows, s.flags, s.misc, it, lane);
     __syncthreads();
   }
 
   if (warp == 0) {
-    publish_prune(p, rows, misc, lane);
+    publish_prune(p, b, rows, s.misc, lane);
     // MISO beam stencil at the listener row's final direction, in f32.
     float tm = 0.0f, pm = 0.0f;
     for (int r = lane; r < P; r += 32)
@@ -483,32 +554,141 @@ __global__ void __launch_bounds__(kThreads, 1)
     tm = warp_sum(tm);
     pm = warp_sum(pm);
     const float st = sinf(tm), ct = cosf(tm), sp = sinf(pm), cp = cosf(pm);
-    warp_stencil<WT>(p, st * cp, -st * sp, ct, false, sw, ssh, lane);
+    warp_stencil<WT>(p, st * cp, -st * sp, ct, false, s.sw, s.ssh, lane);
   }
   __syncthreads();
-  const float* sw0 = reinterpret_cast<const float*>(smem + L.w);
-  const int* ssh0 = reinterpret_cast<const int*>(smem + L.sh);
   const int ldr = p.span + T;
   for (int t = tid; t < T; t += kThreads) {
     float acc = 0.0f;
     for (int c = 0; c < C; ++c) {
-      const float* rp = p.win_raw + (size_t)c * ldr + ssh0[c] + t;
-      for (int j = 0; j < p.taps; ++j) acc = acc + sw0[c * p.taps + j] * rp[j];
+      const float* rp = b.win_raw + (size_t)c * ldr + s.ssh0[c] + t;
+      for (int j = 0; j < p.taps; ++j)
+        acc = acc + s.sw0[c * p.taps + j] * rp[j];
     }
-    p.out_beam[t] = acc;
+    b.out_beam[t] = acc;
   }
-  for (int i = tid; i < kStateRows * P; i += kThreads) p.out_rows[i] = rows[i];
-  if (tid == 0) *p.out_mean = misc[0];
+  for (int i = tid; i < kStateRows * P; i += kThreads) b.out_rows[i] = rows[i];
+  if (tid == 0) *b.out_mean = s.misc[0];
+  __syncthreads();
 }
 
 template <typename WT>
-cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      swarm_chain_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  swarm_chain_kernel<WT><<<1, kThreads, smem, stream>>>(p);
+__device__ Smem enter(const Params& p, unsigned char* smem) {
+  const Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps,
+                               (int)sizeof(WT), p.win_smem != 0);
+  const Smem s = carve(p, L, smem, threadIdx.x >> 5);
+  for (int i = threadIdx.x; i < NROWS * p.P; i += kThreads)
+    s.rows[i] = p.rows_in[i];
+  return s;  // block_update's first barrier publishes the rows
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(kThreads, 1)
+    swarm_chain_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem s = enter<WT>(p, smem);
+  block_update<WT>(p, block_at<WT>(p, 0), s);
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(kThreads, 1)
+    swarm_chunk_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem s = enter<WT>(p, smem);
+  const int P = p.P;
+  float* rows = s.rows;
+  for (int k = 0; k < p.n_blocks; ++k) {
+    // Seeker reset from the pre-drawn table (gradient_ascend.cpp:295-299).
+    // Each row is handled by one thread here and in the carry below.
+    const float* rs = p.resets + (size_t)k * 3 * P;
+    for (int r = threadIdx.x; r < P; r += kThreads)
+      if (rs[r] > 0.5f && rows[FAM_S * P + r] > 0.5f) {
+        rows[TH * P + r] = rs[P + r];
+        rows[PH * P + r] = rs[2 * P + r];
+      }
+    block_update<WT>(p, block_at<WT>(p, k), s);
+    // The published trackers feed block k+1's seeker avoidance.
+    for (int r = threadIdx.x; r < P; r += kThreads) {
+      const bool is_t = rows[FAM_T * P + r] > 0.5f;
+      rows[TGT_TH * P + r] = is_t ? rows[TH * P + r] : 0.0f;
+      rows[TGT_PH * P + r] = is_t ? rows[PH * P + r] : 0.0f;
+      rows[TGT_VA * P + r] = rows[TRK * P + r];
+    }
+  }
+}
+
+template <typename WT>
+cudaError_t launch(const Params& p, bool chunk, size_t smem,
+                   cudaStream_t stream) {
+  const int bytes = (int)smem;
+  cudaError_t e;
+  if (chunk) {
+    e = cudaFuncSetAttribute(swarm_chunk_kernel<WT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    swarm_chunk_kernel<WT><<<1, kThreads, smem, stream>>>(p);
+  } else {
+    e = cudaFuncSetAttribute(swarm_chain_kernel<WT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    swarm_chain_kernel<WT><<<1, kThreads, smem, stream>>>(p);
+  }
   return cudaGetLastError();
+}
+
+int launch_blocks(Params& p, int win_bf16, bool chunk, const float* host_consts,
+                  void* stream) {
+  if (p.taps < 1 || p.taps > kMaxTaps || (!p.fir && p.taps != 2) || p.C < 1 ||
+      p.P < 1 || p.T < 3 || p.n_trackers > p.P || p.n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  memcpy(p.cos_b, host_consts, sizeof(p.cos_b));
+  memcpy(p.sin_b, host_consts + 4, sizeof(p.sin_b));
+  memcpy(p.blackman, host_consts + 8, sizeof(p.blackman));
+  const int elem = win_bf16 ? 2 : 4;
+  Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps, elem, true);
+  p.win_smem = L.total <= kMaxSmem;
+  if (!p.win_smem) L = make_layout(p.C, p.P, p.T, p.span, p.taps, elem, false);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, chunk, L.total, s)
+                        : launch<float>(p, chunk, L.total, s));
+}
+
+Params make_params(const float* xyz, const void* win_bp, const float* win_raw,
+                   const float* rows_in, const float* jumps,
+                   const float* references, float* out_rows, float* out_mean,
+                   float* out_beam, const int* dims, const float* scalars) {
+  Params p;
+  memset(&p, 0, sizeof(p));
+  p.xyz = xyz;
+  p.win_bp = win_bp;
+  p.win_raw = win_raw;
+  p.rows_in = rows_in;
+  p.jumps = jumps;
+  p.references = references;
+  p.out_rows = out_rows;
+  p.out_mean = out_mean;
+  p.out_beam = out_beam;
+  p.C = dims[0];
+  p.P = dims[1];
+  p.T = dims[2];
+  p.span = dims[3];
+  p.taps = dims[4];
+  p.n_iter = dims[5];
+  p.n_sub = dims[6];
+  p.refine = dims[7];
+  p.n_trackers = dims[8];
+  p.quadrant = dims[9];
+  p.fir = dims[10];
+  p.fir_phases = dims[11];
+  p.theta_limit = scalars[0];
+  p.sin_tl = scalars[1];
+  p.cos_tl = scalars[2];
+  p.inv_div = scalars[3];
+  p.cos_closeness = scalars[4];
+  p.error_threshold = scalars[5];
+  p.min_power_fraction = scalars[6];
+  return p;
 }
 
 }  // namespace
@@ -517,64 +697,46 @@ extern "C" const char* swarm_chain_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  host_consts (host memory): the probe ring's cos[4], sin[4],
-// then the Blackman window padded to kMaxTaps.  The window goes to shared
-// memory when it fits beside the scratch, else it is read from global
-// memory (L2) in place.
+// Both entry points launch on `stream` and return cudaGetLastError() (0 on
+// success).  Host-memory operands:
+//   dims[12]    C, P, T, span, taps, n_iter, n_sub, refine, n_trackers,
+//               quadrant, fir, fir_phases;
+//   scalars[7]  theta_limit, sin(theta_limit), cos(theta_limit), 1/divisor,
+//               cos(closeness), error_threshold, min_power_fraction;
+//   host_consts the probe ring's cos[4], sin[4], then the Blackman window
+//               padded to kMaxTaps.
+// The window goes to shared memory when it fits beside the scratch, else it
+// is read from global memory (L2) in place.
+
+// One block (swarm_chain_pallas): win_bp [C, span+T-2], win_raw [C, span+T],
+// jumps [2, n_iter, P], reference []; out_rows [8, P], out_mean [],
+// out_beam [T].
 extern "C" int swarm_chain_launch(
     const float* xyz, const void* win_bp, int win_bf16, const float* win_raw,
     const float* rows_in, const float* jumps, const float* reference,
-    float* out_rows, float* out_mean, float* out_beam, int C, int P, int T,
-    int span, int taps, int n_iter, int n_sub, int refine, int n_trackers,
-    int quadrant, int fir, int fir_phases, float theta_limit, float sin_tl,
-    float cos_tl, float inv_div, float cos_closeness, float error_threshold,
-    float min_power_fraction, float block_index, const float* host_consts,
+    float* out_rows, float* out_mean, float* out_beam, long long block_index,
+    const int* dims, const float* scalars, const float* host_consts,
     void* stream) {
-  if (taps < 1 || taps > kMaxTaps || (!fir && taps != 2) || C < 1 || P < 1 ||
-      T < 3 || n_trackers > P)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  memset(&p, 0, sizeof(p));
-  p.xyz = xyz;
-  p.win_bp = win_bp;
-  p.win_raw = win_raw;
-  p.rows_in = rows_in;
-  p.jumps = jumps;
-  p.reference = reference;
-  p.out_rows = out_rows;
-  p.out_mean = out_mean;
-  p.out_beam = out_beam;
-  p.C = C;
-  p.P = P;
-  p.T = T;
-  p.span = span;
-  p.taps = taps;
-  p.n_iter = n_iter;
-  p.n_sub = n_sub;
-  p.refine = refine;
-  p.n_trackers = n_trackers;
-  p.quadrant = quadrant;
-  p.fir = fir;
-  p.fir_phases = fir_phases;
-  p.theta_limit = theta_limit;
-  p.sin_tl = sin_tl;
-  p.cos_tl = cos_tl;
-  p.inv_div = inv_div;
-  p.cos_closeness = cos_closeness;
-  p.error_threshold = error_threshold;
-  p.min_power_fraction = min_power_fraction;
-  p.block_index = block_index;
-  memcpy(p.cos_b, host_consts, sizeof(p.cos_b));
-  memcpy(p.sin_b, host_consts + 4, sizeof(p.sin_b));
-  memcpy(p.blackman, host_consts + 8, sizeof(p.blackman));
+  Params p = make_params(xyz, win_bp, win_raw, rows_in, jumps, reference,
+                         out_rows, out_mean, out_beam, dims, scalars);
+  p.n_blocks = 1;
+  p.block_index0 = block_index;
+  return launch_blocks(p, win_bf16, false, host_consts, stream);
+}
 
-  const int elem = win_bf16 ? 2 : 4;
-  Layout L = make_layout(C, P, T, span, taps, elem, true);
-  p.win_smem = L.total <= kMaxSmem;
-  if (!p.win_smem) L = make_layout(C, P, T, span, taps, elem, false);
-  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, L.total, s)
-                        : launch<float>(p, L.total, s));
+// K blocks (swarm_chunk_pallas): the same operands stacked on a leading
+// axis of n_blocks, plus resets [K, 3, P] (flag, theta, phi; a seeker row
+// takes (theta, phi) before block k when the flag is set).
+extern "C" int swarm_chunk_launch(
+    const float* xyz, const void* wins_bp, int win_bf16, const float* wins_raw,
+    const float* rows_in, const float* jumps, const float* resets,
+    const float* references, float* out_rows, float* out_mean,
+    float* out_beams, int n_blocks, long long block_index0, const int* dims,
+    const float* scalars, const float* host_consts, void* stream) {
+  Params p = make_params(xyz, wins_bp, wins_raw, rows_in, jumps, references,
+                         out_rows, out_mean, out_beams, dims, scalars);
+  p.resets = resets;
+  p.n_blocks = n_blocks;
+  p.block_index0 = block_index0;
+  return launch_blocks(p, win_bf16, true, host_consts, stream);
 }

@@ -41,3 +41,21 @@ def ring_window(history, block_size: int, shift_range: int, taps: int):
             f"history {h} too short for block {block_size} + shifts {shift_range}"
         )
     return history[..., w0:w0 + block_size + shift_range]
+
+
+def ring_windows(history, block_size: int, shift_range: int, taps: int,
+                 chunk: int):
+    """[chunk, C, T + S] windows of the last ``chunk`` pushed blocks: window
+    ``j`` is :func:`ring_window` as it was right after block ``j`` of the
+    chunk was pushed.  Returns ONE strided view of ``history`` (``unfold``
+    over the time axis; no copy)."""
+    h = history.shape[-1]
+    win = block_size + shift_range
+    w_last = block_start(h, block_size) - (shift_range - taps)
+    w0 = w_last - (chunk - 1) * block_size
+    if w0 < 0:
+        raise ValueError(
+            f"history {h} too short for {chunk} blocks of {block_size} "
+            f"+ shifts {shift_range}"
+        )
+    return history[..., w0:w_last + win].unfold(-1, win, block_size).movedim(-2, 0)

@@ -1,12 +1,15 @@
-"""The whole per-block swarm update as one CUDA kernel, with its plain twin.
+"""The whole per-block swarm update as CUDA kernels, with their plain twins.
 
-Counterpart of ``beamforming_lk_tpu.ops.pallas_tracker.swarm_chain_pallas``:
-``n_iter`` iterations of [``n_sub`` chained 4-probe monopulse sub-steps +
-merge + seeker jump + promote], then the publish prune and the MISO audio
-beam at the refined listener direction.  The CUDA source is
-``beamforming_lk_tpu_torch/csrc/swarm_chain.cu``.
+Counterparts of ``beamforming_lk_tpu.ops.pallas_tracker.swarm_chain_pallas``
+(one block: ``n_iter`` iterations of [``n_sub`` chained 4-probe monopulse
+sub-steps + merge + seeker jump + promote], then the publish prune and the
+MISO audio beam at the refined listener direction) and ``swarm_chunk_pallas``
+(K consecutive blocks of that update in one launch, with the seeker resets
+of a reset table and the published targets carried block to block).  The
+CUDA source of both is ``beamforming_lk_tpu_torch/csrc/swarm_chain.cu``.
 
-Operand layout (shared by the kernel and the twin):
+Operand layout of one block (shared by the kernels and the twins; the
+chunk forms stack the per-block operands on a leading axis of K):
 
 - ``xyz``        [4, C] f32: x, y, z times samples-per-metre, channel mask
 - ``window_bp``  [C, span+T-2] compact probe window with the 3-tap bandpass
@@ -16,14 +19,17 @@ Operand layout (shared by the kernel and the twin):
                  particle rows are laid out trackers | miso | seekers
 - ``jumps``      [2, n_iter, P] f32 seeker jump offsets (theta, phi)
 - ``reference``  [] f32 the prune floor (channel-0 bandpass power)
+- ``resets``     [K, 3, P] f32 (chunk only): flag, theta, phi of the seeker
+                 reset before block k (seeker rows take theta, phi when the
+                 flag is set)
 
 The probe beam of row r, probe q is gathered straight from the compact
 window, ``beam[t] = sum_c sum_j w_j(r,q,c) * bp[c, shift(r,q,c) + j + t]``:
 the same numbers as the TPU kernel's dense one-hot stencil against its
 s-major window (row ``s*C + c`` of which is ``bp[c, s + t]``).
 
-:func:`swarm_chain` dispatches on the device of its tensors: CPU tensors
-take :func:`swarm_chain_reference`, CUDA tensors launch the kernel (or the
+:func:`swarm_chain` and :func:`swarm_chunk` dispatch on the device of their
+tensors: CPU tensors take the twin, CUDA tensors launch the kernel (or the
 call raises), any other device raises.
 """
 
@@ -75,10 +81,10 @@ def pack_geometry(points, samples_per_meter, channel_mask=None, device=None):
 
 
 def bandpass_window(pw):
-    """Compact probe window [C, W] -> its 3-tap bandpass [C, W-2]
+    """Compact probe window [..., C, W] -> its 3-tap bandpass [..., C, W-2]
     (``ops.delay.bandpass_ma`` along time).  The bandpass commutes with the
     shift stencil, so the probe beams come out band-passed."""
-    return 0.5 * pw[:, 1:-1] - 0.25 * (pw[:, 2:] + pw[:, :-2])
+    return 0.5 * pw[..., 1:-1] - 0.25 * (pw[..., 2:] + pw[..., :-2])
 
 
 def _consts(probe_layout, taps, theta_limit):
@@ -319,23 +325,75 @@ def swarm_chain_reference(
     return state, mean, beam
 
 
+def carry_rows(rows, state):
+    """The rows entering the next block of a chunk: a block's ``state``
+    [8, P], the constant rows of ``rows``, and the block's published
+    trackers (theta, phi, tracking) as target rows, zero on other rows."""
+    is_tracker = rows[10] > 0.5
+    zero = torch.zeros_like(state[0])
+    return torch.cat([state, rows[STATE_ROWS:13], torch.stack([
+        torch.where(is_tracker, state[0], zero),
+        torch.where(is_tracker, state[1], zero),
+        state[6],
+    ])])
+
+
+def swarm_chunk_reference(
+    xyz, windows_bp, windows_raw, rows, jumps, resets, references, *,
+    block_index0, chain=None, **kw,
+):
+    """Plain twin of the chunk kernel: K calls of
+    :func:`swarm_chain_reference`.  Before block k the seeker rows take the
+    reset directions where ``resets[k, 0]`` is set; after it the published
+    trackers (theta, phi, tracking) become block k+1's target rows, zero on
+    the other rows.  ``kw`` are :func:`swarm_chain_reference`'s keywords;
+    ``chain`` replaces it as the per-block update (``swarm_chain`` holds the
+    chunk kernel against K single-block launches on the card).
+
+    Returns ``(state [K, 8, P], mean [K], beams [K, T])``."""
+    chain = chain or swarm_chain_reference
+    is_seeker = rows[11] > 0.5
+    states, means, beams = [], [], []
+    for k in range(windows_bp.shape[0]):
+        reset = (resets[k, 0] > 0.5) & is_seeker
+        rows = torch.cat([
+            torch.stack([torch.where(reset, resets[k, 1], rows[0]),
+                         torch.where(reset, resets[k, 2], rows[1])]),
+            rows[2:],
+        ])
+        state, mean, beam = chain(
+            xyz, windows_bp[k], windows_raw[k], rows, jumps[k], references[k],
+            block_index=block_index0 + k, **kw,
+        )
+        rows = carry_rows(rows, state)
+        states.append(state)
+        means.append(mean)
+        beams.append(beam)
+    return torch.stack(states), torch.stack(means), torch.stack(beams)
+
+
 @functools.cache
 def _library():
     from beamforming_lk_tpu_torch.ops import nvcc
 
     lib = ctypes.CDLL(nvcc.build("swarm_chain", [_SOURCE]))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.swarm_chain_launch.argtypes = (
-        [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-        + [i32] * 12 + [f32] * 8 + [ptr, ptr]
+        [ptr, ptr, i32] + [ptr] * 7 + [i64] + [ptr] * 4
+    )
+    lib.swarm_chunk_launch.argtypes = (
+        [ptr, ptr, i32] + [ptr] * 8 + [i32, i64] + [ptr] * 4
     )
     lib.swarm_chain_launch.restype = i32
+    lib.swarm_chunk_launch.restype = i32
     lib.swarm_chain_error_string.argtypes = [i32]
     lib.swarm_chain_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name, t, device, dtypes, shape):
+def check_operand(name, t, device, dtypes, shape):
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` on ``device``
+    with one of ``dtypes`` (what a kernel wrapper checks before a launch)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
@@ -344,6 +402,96 @@ def _check(name, t, device, dtypes, shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(entry, device):
+    """Raise for a device that is neither the CPU (twin) nor CUDA (kernel)."""
+    if device.type != "cuda":
+        raise RuntimeError(
+            f"{entry} runs on CUDA (kernel) or CPU (twin), not {device}"
+        )
+
+
+def _check_operands(xyz, window_bp, window_raw, rows, jumps, reference,
+                    resets, *, n_iter, n_trackers, span, taps, interp, **_):
+    """Raise unless the operands fit the kernel (``resets`` is None for the
+    single-block kernel, whose operands have no block axis).  Run on every
+    device, so the CPU twin's callers are held to the kernel's layout."""
+    chunk = resets is not None
+    lead = tuple(window_bp.shape[:1]) if chunk else ()
+    device = rows.device
+    c, p = xyz.shape[1], rows.shape[1]
+    t_len = window_raw.shape[-1] - span
+    if taps > _MAX_TAPS or interp not in ("linear", "fir"):
+        raise ValueError(f"unsupported stencil: interp={interp} taps={taps}")
+    if t_len < 3:
+        raise ValueError(f"window_raw has {window_raw.shape[-1]} columns; need span + T")
+    if chunk and lead[0] < 1:
+        raise ValueError("a chunk needs at least one block")
+    f32 = (torch.float32,)
+    check_operand("xyz", xyz, device, f32, (4, c))
+    check_operand("window_bp", window_bp, device,
+                  (torch.float32, torch.bfloat16), lead + (c, span + t_len - 2))
+    check_operand("window_raw", window_raw, device, f32, lead + (c, span + t_len))
+    check_operand("rows", rows, device, f32, (len(ROW_FIELDS), p))
+    check_operand("jumps", jumps, device, f32, lead + (2, n_iter, p))
+    check_operand("reference", reference, device, f32, lead)
+    if chunk:
+        check_operand("resets", resets, device, f32, lead + (3, p))
+    if not 0 < n_trackers <= p:
+        raise ValueError(f"n_trackers={n_trackers} outside (0, {p}]")
+
+
+def _launch(entry, xyz, window_bp, window_raw, rows, jumps, reference,
+            resets, *, block_index, n_iter, n_sub, refine, n_trackers, span,
+            taps, theta_limit, divisor, closeness, error_threshold,
+            probe_layout, interp, fir_phases, min_power_fraction):
+    """Allocate the outputs of one launch of checked operands and launch on
+    the current stream."""
+    lead = tuple(window_bp.shape[:1]) if resets is not None else ()
+    device = rows.device
+    c, p = xyz.shape[1], rows.shape[1]
+    t_len = window_raw.shape[-1] - span
+    k = _consts(probe_layout, taps, theta_limit)
+    dims = (ctypes.c_int * 12)(
+        c, p, t_len, span, taps, n_iter, n_sub, refine, n_trackers,
+        int(probe_layout == "quadrant"), int(interp == "fir"), fir_phases,
+    )
+    scalars = (ctypes.c_float * 7)(
+        float(theta_limit), k["sin_tl"], k["cos_tl"], 1.0 / float(divisor),
+        float(np.cos(closeness)), float(error_threshold),
+        float(min_power_fraction),
+    )
+    host = (ctypes.c_float * 24)(
+        *(k["cos_b"] + k["sin_b"] + k["blackman"]
+          + [0.0] * (_MAX_TAPS - taps))
+    )
+    state = torch.empty(lead + (STATE_ROWS, p), dtype=torch.float32, device=device)
+    mean = torch.empty(lead, dtype=torch.float32, device=device)
+    beam = torch.empty(lead + (t_len,), dtype=torch.float32, device=device)
+    lib = _library()
+    head = (xyz.data_ptr(), window_bp.data_ptr(),
+            int(window_bp.dtype == torch.bfloat16), window_raw.data_ptr(),
+            rows.data_ptr(), jumps.data_ptr())
+    outs = (state.data_ptr(), mean.data_ptr(), beam.data_ptr())
+    tail = (ctypes.addressof(dims), ctypes.addressof(scalars),
+            ctypes.addressof(host),
+            torch.cuda.current_stream(device).cuda_stream)
+    if resets is not None:
+        err = lib.swarm_chunk_launch(
+            *head, resets.data_ptr(), reference.data_ptr(), *outs, lead[0],
+            int(block_index), *tail,
+        )
+    else:
+        err = lib.swarm_chain_launch(
+            *head, reference.data_ptr(), *outs, int(block_index), *tail,
+        )
+    if err:
+        raise RuntimeError(
+            f"{entry} kernel launch failed: "
+            + lib.swarm_chain_error_string(err).decode()
+        )
+    return state, mean, beam
 
 
 def swarm_chain(
@@ -357,65 +505,61 @@ def swarm_chain(
     Returns ``(state [8, P], mean [], beam [T])``; ``swarm_chain.launches``
     counts kernel launches."""
     kw = dict(
-        block_index=block_index, n_iter=n_iter, n_sub=n_sub, refine=refine,
+        n_iter=n_iter, n_sub=n_sub, refine=refine,
         n_trackers=n_trackers, span=span, taps=taps, theta_limit=theta_limit,
         divisor=divisor, closeness=closeness, error_threshold=error_threshold,
         probe_layout=probe_layout, interp=interp, fir_phases=fir_phases,
         min_power_fraction=min_power_fraction,
     )
-    device = rows.device
-    if device.type == "cpu":
+    _check_operands(xyz, window_bp, window_raw, rows, jumps, reference, None,
+                    **kw)
+    if rows.device.type == "cpu":
         return swarm_chain_reference(
-            xyz, window_bp, window_raw, rows, jumps, reference, **kw
+            xyz, window_bp, window_raw, rows, jumps, reference,
+            block_index=block_index, **kw,
         )
-    if device.type != "cuda":
-        raise RuntimeError(
-            f"swarm_chain runs on CUDA (kernel) or CPU (twin), not {device}"
-        )
-    c, p = xyz.shape[1], rows.shape[1]
-    t_len = window_raw.shape[1] - span
-    if taps > _MAX_TAPS or interp not in ("linear", "fir"):
-        raise ValueError(f"unsupported stencil: interp={interp} taps={taps}")
-    if t_len < 3:
-        raise ValueError(f"window_raw has {window_raw.shape[1]} columns; need span + T")
-    f32 = (torch.float32,)
-    _check("xyz", xyz, device, f32, (4, c))
-    _check("window_bp", window_bp, device, (torch.float32, torch.bfloat16),
-           (c, span + t_len - 2))
-    _check("window_raw", window_raw, device, f32, (c, span + t_len))
-    _check("rows", rows, device, f32, (len(ROW_FIELDS), p))
-    _check("jumps", jumps, device, f32, (2, n_iter, p))
-    _check("reference", reference, device, f32, ())
-    if not 0 < n_trackers <= p:
-        raise ValueError(f"n_trackers={n_trackers} outside (0, {p}]")
-    k = _consts(probe_layout, taps, theta_limit)
-    host = (ctypes.c_float * 24)(
-        *(k["cos_b"] + k["sin_b"] + k["blackman"]
-          + [0.0] * (_MAX_TAPS - taps))
-    )
-    state = torch.empty((STATE_ROWS, p), dtype=torch.float32, device=device)
-    mean = torch.empty((), dtype=torch.float32, device=device)
-    beam = torch.empty((t_len,), dtype=torch.float32, device=device)
-    lib = _library()
-    err = lib.swarm_chain_launch(
-        xyz.data_ptr(), window_bp.data_ptr(),
-        int(window_bp.dtype == torch.bfloat16), window_raw.data_ptr(),
-        rows.data_ptr(), jumps.data_ptr(), reference.data_ptr(),
-        state.data_ptr(), mean.data_ptr(), beam.data_ptr(),
-        c, p, t_len, span, taps, n_iter, n_sub, refine, n_trackers,
-        int(probe_layout == "quadrant"), int(interp == "fir"), fir_phases,
-        float(theta_limit), k["sin_tl"], k["cos_tl"], 1.0 / float(divisor),
-        float(np.cos(closeness)), float(error_threshold),
-        float(min_power_fraction), float(block_index),
-        ctypes.addressof(host), torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(
-            "swarm_chain kernel launch failed: "
-            + lib.swarm_chain_error_string(err).decode()
-        )
+    require_cuda("swarm_chain", rows.device)
+    out = _launch("swarm_chain", xyz, window_bp, window_raw, rows, jumps,
+                  reference, None, block_index=block_index, **kw)
     swarm_chain.launches += 1
-    return state, mean, beam
+    return out
 
 
 swarm_chain.launches = 0
+
+
+def swarm_chunk(
+    xyz, windows_bp, windows_raw, rows, jumps, resets, references, *,
+    block_index0, n_iter, n_sub, refine, n_trackers, span,
+    taps=dl.LINEAR_TAPS, theta_limit, divisor, closeness, error_threshold,
+    probe_layout="quadrant", interp="linear", fir_phases=101,
+    min_power_fraction=0.0,
+):
+    """K consecutive blocks of the swarm update in one launch: the operands
+    of :func:`swarm_chain` stacked on a leading block axis, plus ``resets``
+    [K, 3, P]; ``rows`` is the state entering block 0.  Block k's outputs
+    equal k+1 calls of :func:`swarm_chain` with the same per-block operands.
+    Returns ``(state [K, 8, P], mean [K], beams [K, T])``;
+    ``swarm_chunk.launches`` counts kernel launches."""
+    kw = dict(
+        n_iter=n_iter, n_sub=n_sub, refine=refine,
+        n_trackers=n_trackers, span=span, taps=taps, theta_limit=theta_limit,
+        divisor=divisor, closeness=closeness, error_threshold=error_threshold,
+        probe_layout=probe_layout, interp=interp, fir_phases=fir_phases,
+        min_power_fraction=min_power_fraction,
+    )
+    _check_operands(xyz, windows_bp, windows_raw, rows, jumps, references,
+                    resets, **kw)
+    if rows.device.type == "cpu":
+        return swarm_chunk_reference(
+            xyz, windows_bp, windows_raw, rows, jumps, resets, references,
+            block_index0=block_index0, **kw,
+        )
+    require_cuda("swarm_chunk", rows.device)
+    out = _launch("swarm_chunk", xyz, windows_bp, windows_raw, rows, jumps,
+                  references, resets, block_index=block_index0, **kw)
+    swarm_chunk.launches += 1
+    return out
+
+
+swarm_chunk.launches = 0

@@ -1,5 +1,6 @@
 """Separable frequency-domain DAS heatmap for lattice apertures
-(counterpart of ``beamforming_lk_tpu.ops.fft_das``, ``power_path="fused"``).
+(counterpart of ``beamforming_lk_tpu.ops.fft_das``: the three power paths,
+the chunked form, and the power-stage kernel ``power_matmul``).
 
 For a planar rectangular-lattice array steered over the heatmap's
 sin-projected tensor direction grid the steering delay is separable,
@@ -15,11 +16,21 @@ Every spectrum is an (re, im) pair of real planes and every stage a real
 matrix product (``torch.einsum``), as in the JAX package.  Dead channels
 of a binary mask are removed by subtracting their rank-1 contribution.
 The constants are built in numpy float64 by :func:`make_fft_heatmap_model`.
+
+The final power stage is the model's ``power_path``: ``"fused"`` (the
+einsum against ``pow_ri``, then the square-reduce), ``"pallas"`` (the same
+contraction and square-reduce as one hand-written CUDA kernel,
+:func:`power_matmul`, source ``csrc/power_matmul.cu``; the name is the JAX
+package's) or ``"beam"`` (the [D, T] beam through ``idft``, then
+``das_power``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -27,6 +38,13 @@ import torch
 from torch import nn
 
 from beamforming_lk_tpu_torch.ops import delay as dl
+from beamforming_lk_tpu_torch.ops.cuda_tracker import check_operand, require_cuda
+
+POWER_PATHS = ("fused", "pallas", "beam")
+_SOURCE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "csrc", "power_matmul.cu",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,18 +121,22 @@ def _offdisc_gather(mimo_cfg) -> Optional[np.ndarray]:
 class FftHeatmapModel(nn.Module):
     """Constant operands of the separable heatmap, held as buffers on one
     device.  ``ex_s``/``ey_s`` are [F, D_axis, 2C_axis] = [cos | sin] of the
-    per-axis steering phase; ``dft`` [L, 2F] = [cos | -sin]; ``pow_ri``
+    per-axis steering phase; ``dft`` [L, 2F] = [cos | -sin]; ``idft``
+    [2F, T] the restricted inverse rfft (the "beam" path); ``pow_ri``
     [2F, Tp] the bandpass-folded restricted inverse DFT with the power
     normalization folded in; ``perm_matrix`` [C, C] one-hot site<-channel
     (None when channel order is lattice order); ``src_map`` [D] the
     off-disc gather (None when every pixel is on the disc); ``dead_*`` the
     rank-1 terms of masked channels (None without dead channels)."""
 
-    def __init__(self, *, ex_s, ey_s, dft, pow_ri, perm_matrix=None,
+    def __init__(self, *, ex_s, ey_s, dft, idft, pow_ri, perm_matrix=None,
                  src_map=None, dead=None, rows: int, columns: int,
                  block_size: int, fft_len: int, n_active: float,
-                 compute: str = "float32", device=None):
+                 use_bandpass: bool = True, compute: str = "float32",
+                 power_path: str = "fused", device=None):
         super().__init__()
+        if power_path not in POWER_PATHS:
+            raise ValueError(f"power_path {power_path!r} not in {POWER_PATHS}")
 
         def buf(name, a, dtype=torch.float32):
             t = None if a is None else torch.as_tensor(
@@ -125,6 +147,7 @@ class FftHeatmapModel(nn.Module):
         buf("ex_s", ex_s)
         buf("ey_s", ey_s)
         buf("dft", dft)
+        buf("idft", idft)
         buf("pow_ri", pow_ri)
         buf("perm_matrix", perm_matrix)
         buf("src_map", src_map, torch.long)
@@ -138,7 +161,9 @@ class FftHeatmapModel(nn.Module):
         self.block_size = block_size
         self.fft_len = fft_len
         self.n_active = n_active
+        self.use_bandpass = use_bandpass
         self.compute = compute
+        self.power_path = power_path
 
     def forward(self, window):
         return fft_heatmap_powers(window, self)
@@ -151,14 +176,21 @@ def make_fft_heatmap_model(
     array_cfg,
     channel_mask=None,
     compute: Optional[str] = None,
+    power_path: str = "fused",
+    assume_lattice_order: bool = False,
     device=None,
 ) -> Optional[FftHeatmapModel]:
     """Precompute the separable steering factors in numpy float64, or
     return None when the configuration does not factor (non-lattice points
-    or a non-binary gain mask)."""
+    or a non-binary gain mask).  ``power_path`` selects the final stage
+    (module docstring)."""
     if mimo_cfg.phat:
         raise NotImplementedError(
             "SRP-PHAT whitening is not ported to the torch heatmap yet"
+        )
+    if assume_lattice_order:
+        raise NotImplementedError(
+            "the lattice-ordered heatmap model is not ported yet"
         )
     lat = lattice_factorization(points)
     if lat is None:
@@ -237,55 +269,65 @@ def make_fft_heatmap_model(
         perm_matrix = np.zeros((len(lat.perm), len(lat.perm)), np.float32)
         perm_matrix[np.arange(len(lat.perm)), lat.perm] = 1.0
     return FftHeatmapModel(
-        ex_s=_stacked(ang_x), ey_s=_stacked(ang_y), dft=dft, pow_ri=pow_ri,
+        ex_s=_stacked(ang_x), ey_s=_stacked(ang_y), dft=dft,
+        idft=idft_np.astype(np.float32), pow_ri=pow_ri,
         perm_matrix=perm_matrix, src_map=_offdisc_gather(mimo_cfg), dead=dead,
         rows=mimo_cfg.rows, columns=mimo_cfg.columns, block_size=t,
-        fft_len=L, n_active=n_active, compute=compute or "float32",
-        device=device,
+        fft_len=L, n_active=n_active, use_bandpass=dsp_cfg.use_bandpass,
+        compute=compute or "float32", power_path=power_path, device=device,
     )
 
 
 def _steered_spectra(window, model: FftHeatmapModel, mm):
-    """Per-direction beam spectra ``(b2_re, b2_im)``, each [Dy, Dx, F].
-    Each complex contraction is one real einsum: the steering factor's re
-    and im are stacked along the contracted axis and the outputs' re and im
-    ride a doubled batch axis."""
+    """Per-direction beam spectra ``(b2_re, b2_im)``, each [..., Dy, Dx, F],
+    of a window [C, S+T] or of a stack of windows [..., C, S+T] (the chunk
+    axis rides every product as a batch axis).  Each complex contraction is
+    one real einsum: the steering factor's re and im are stacked along the
+    contracted axis and the outputs' re and im ride a doubled batch axis."""
     cx = model.ex_s.shape[-1] // 2
     cy = model.ey_s.shape[-1] // 2
     f_half = model.dft.shape[-1] // 2
-    x_ri = mm("ct,tf->cf", window, model.dft)               # [C, 2F]
+    lead = window.shape[:-2]
+    x_ri = mm("...ct,tf->...cf", window, model.dft)         # [..., C, 2F]
     if model.perm_matrix is not None:
-        x_ri = mm("sc,cf->sf", model.perm_matrix, x_ri)
-    x = x_ri.reshape(cy, cx, 2, f_half)
-    x_re, x_im = x[..., 0, :], x[..., 1, :]                 # [Cy, Cx, F]
+        x_ri = mm("sc,...cf->...sf", model.perm_matrix, x_ri)
+    x = x_ri.reshape(*lead, cy, cx, 2, f_half)
+    x_re, x_im = x[..., 0, :], x[..., 1, :]                 # [..., Cy, Cx, F]
     x_for = torch.cat([
-        torch.cat([x_re, -x_im], dim=1),                    # -> b1_re
-        torch.cat([x_im, x_re], dim=1),                     # -> b1_im
-    ], dim=0)                                               # [2Cy, 2Cx, F]
-    b1 = mm("fdc,ycf->dyf", model.ex_s, x_for)              # [Dx, 2Cy, F]
-    b1_re, b1_im = b1[:, :cy], b1[:, cy:]
+        torch.cat([x_re, -x_im], dim=-2),                   # -> b1_re
+        torch.cat([x_im, x_re], dim=-2),                    # -> b1_im
+    ], dim=-3)                                              # [..., 2Cy, 2Cx, F]
+    b1 = mm("fdc,...ycf->...dyf", model.ex_s, x_for)        # [..., Dx, 2Cy, F]
+    b1_re, b1_im = b1[..., :cy, :], b1[..., cy:, :]
     b1_for = torch.cat([
-        torch.cat([b1_re, -b1_im], dim=1),                  # -> b2_re
-        torch.cat([b1_im, b1_re], dim=1),                   # -> b2_im
-    ], dim=0)                                               # [2Dx, 2Cy, F]
-    dx = b1.shape[0]
-    b2s = mm("fdc,xcf->dxf", model.ey_s, b1_for)            # [Dy, 2Dx, F]
-    b2_re, b2_im = b2s[:, :dx], b2s[:, dx:]
+        torch.cat([b1_re, -b1_im], dim=-2),                 # -> b2_re
+        torch.cat([b1_im, b1_re], dim=-2),                  # -> b2_im
+    ], dim=-3)                                              # [..., 2Dx, 2Cy, F]
+    dx = b1.shape[-3]
+    b2s = mm("fdc,...xcf->...dxf", model.ey_s, b1_for)      # [..., Dy, 2Dx, F]
+    b2_re, b2_im = b2s[..., :dx, :], b2s[..., dx:, :]
     if model.dead_chan is not None:
-        s_ri = mm("nt,tf->nf", window[model.dead_chan], model.dft)  # [Nd, 2F]
-        srt = s_ri[:, :f_half].T[:, None, :]                # [F, 1, Nd]
-        sit = s_ri[:, f_half:].T[:, None, :]
+        s_ri = mm("...nt,tf->...nf", window[..., model.dead_chan, :],
+                  model.dft)                                # [..., Nd, 2F]
+        srt = s_ri[..., :f_half].transpose(-1, -2)[..., None, :]  # [..., F, 1, Nd]
+        sit = s_ri[..., f_half:].transpose(-1, -2)[..., None, :]
         xdr, xdi = model.dead_xre, model.dead_xim
         ydr, ydi = model.dead_yre, model.dead_yim
-        t1_r = xdr * srt - xdi * sit                        # [F, Dx, Nd]
+        t1_r = xdr * srt - xdi * sit                        # [..., F, Dx, Nd]
         t1_i = xdr * sit + xdi * srt
         b2_re = b2_re - (
-            mm("fxn,fyn->yxf", t1_r, ydr) - mm("fxn,fyn->yxf", t1_i, ydi)
+            mm("...fxn,fyn->...yxf", t1_r, ydr)
+            - mm("...fxn,fyn->...yxf", t1_i, ydi)
         )
         b2_im = b2_im - (
-            mm("fxn,fyn->yxf", t1_r, ydi) + mm("fxn,fyn->yxf", t1_i, ydr)
+            mm("...fxn,fyn->...yxf", t1_r, ydi)
+            + mm("...fxn,fyn->...yxf", t1_i, ydr)
         )
     return b2_re, b2_im
+
+
+def _compute_dtype(model: FftHeatmapModel):
+    return torch.bfloat16 if model.compute == "bfloat16" else torch.float32
 
 
 def _mm_builders(model: FftHeatmapModel):
@@ -294,7 +336,7 @@ def _mm_builders(model: FftHeatmapModel):
     intermediate stages do; ``mm_f32`` returns float32 — for bf16 it runs
     on bf16-rounded inputs cast to float32, which is a bf16-input,
     f32-accumulate, f32-output product."""
-    dtype = torch.bfloat16 if model.compute == "bfloat16" else torch.float32
+    dtype = _compute_dtype(model)
 
     def mm_mid(sub, a, b):
         return torch.einsum(sub, a.to(dtype), b.to(dtype))
@@ -307,15 +349,119 @@ def _mm_builders(model: FftHeatmapModel):
     return mm_mid, mm_f32
 
 
+def _power_stage(b2_re, b2_im, model: FftHeatmapModel, mm_f32):
+    """Powers [..., Dy*Dx] of the steered spectra [..., Dy, Dx, F] through
+    the ``"fused"`` or ``"pallas"`` path, over all leading rows at once."""
+    lead = b2_re.shape[:-3]
+    d = model.rows * model.columns
+    f_half = b2_re.shape[-1]
+    if model.power_path == "pallas":
+        dtype = _compute_dtype(model)
+        # einsum may hand back a permuted layout; the kernel reads rows.
+        powers = power_matmul(
+            b2_re.reshape(-1, f_half).to(dtype).contiguous(),
+            b2_im.reshape(-1, f_half).to(dtype).contiguous(),
+            model.pow_ri[:f_half], model.pow_ri[f_half:],
+        )
+    else:
+        b2_ri = torch.cat([b2_re, b2_im], dim=-1)           # [..., Dy, Dx, 2F]
+        bp = mm_f32("...yxf,ft->...yxt", b2_ri, model.pow_ri)
+        powers = torch.sum(bp * bp, dim=-1)
+    return powers.reshape(*lead, d)
+
+
 def fft_heatmap_powers(window, model: FftHeatmapModel):
     """Heatmap powers [rows*columns] from a DAS window [C, S+T]: band-passed
-    mean power over the beamformed block, normalized by T * active channels,
-    with the [D, T] beam never materialized."""
+    mean power over the beamformed block, normalized by T * active channels.
+    The ``"fused"`` and ``"pallas"`` paths never materialize the [D, T]
+    beam; ``"beam"`` does, then takes :func:`ops.delay.das_power`."""
     mm_mid, mm_f32 = _mm_builders(model)
     b2_re, b2_im = _steered_spectra(window, model, mm_mid)
-    b2_ri = torch.cat([b2_re, b2_im], dim=-1)               # [Dy, Dx, 2F]
-    bp = mm_f32("yxf,ft->yxt", b2_ri, model.pow_ri)         # [Dy, Dx, Tp]
-    powers = torch.sum(bp * bp, dim=-1).reshape(model.rows * model.columns)
+    if model.power_path == "beam":
+        t = model.block_size
+        b2_ri = torch.cat([b2_re, b2_im], dim=-1)           # [Dy, Dx, 2F]
+        beam = mm_f32("yxf,ft->yxt", b2_ri, model.idft).reshape(-1, t)
+        powers = dl.das_power(beam, use_bandpass=model.use_bandpass,
+                              divisor=t * model.n_active)
+    else:
+        powers = _power_stage(b2_re, b2_im, model, mm_f32)
     if model.src_map is not None:
         powers = powers[model.src_map]
     return powers
+
+
+def fft_heatmap_powers_chunked(windows, model: FftHeatmapModel):
+    """Heatmap powers [chunk, rows*columns] of stacked windows
+    [chunk, C, S+T]: the steering stages with the chunk as a batch axis,
+    then ONE power stage over all ``chunk * D`` direction rows (a single
+    :func:`power_matmul` launch on the ``"pallas"`` path).  As in the JAX
+    package, the ``"beam"`` path takes the fused power stage here."""
+    mm_mid, mm_f32 = _mm_builders(model)
+    b2_re, b2_im = _steered_spectra(windows, model, mm_mid)  # [ck, Dy, Dx, F]
+    powers = _power_stage(b2_re, b2_im, model, mm_f32)
+    if model.src_map is not None:
+        powers = powers[:, model.src_map]
+    return powers
+
+
+def power_matmul_reference(a_re, a_im, pow_cos, pow_msin):
+    """Plain twin of the power-stage kernel:
+    ``powers[r] = sum_t (a_re @ pow_cos + a_im @ pow_msin)[r, t]^2`` with
+    every input rounded to ``a_re``'s dtype and f32 products and sums."""
+    dtype = a_re.dtype
+
+    def f(x):
+        return x.to(dtype).to(torch.float32)
+
+    return (f(a_re) @ f(pow_cos) + f(a_im) @ f(pow_msin)).square().sum(-1)
+
+
+@functools.cache
+def _library():
+    from beamforming_lk_tpu_torch.ops import nvcc
+
+    lib = ctypes.CDLL(nvcc.build("power_matmul", [_SOURCE]))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.power_matmul_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.power_matmul_launch.restype = i32
+    lib.power_matmul_error_string.argtypes = [i32]
+    lib.power_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def power_matmul(a_re, a_im, pow_cos, pow_msin):
+    """Powers [R] f32 of steered spectra planes ``a_re``/``a_im`` [R, F]
+    (f32 or bf16) against the power matrix halves ``pow_cos``/``pow_msin``
+    [F, Tp], which are rounded to ``a_re``'s dtype as the JAX package's
+    ``power_matmul_pallas`` does.  The [R, Tp] beam never reaches device
+    memory.  CPU tensors take :func:`power_matmul_reference`;
+    ``power_matmul.launches`` counts kernel launches."""
+    device = a_re.device
+    dtype = a_re.dtype
+    r, f = a_re.shape
+    tp = pow_cos.shape[-1]
+    pc, ps = pow_cos.to(dtype).contiguous(), pow_msin.to(dtype).contiguous()
+    check_operand("a_re", a_re, device, (torch.float32, torch.bfloat16), (r, f))
+    check_operand("a_im", a_im, device, (dtype,), (r, f))
+    check_operand("pow_cos", pc, device, (dtype,), (f, tp))
+    check_operand("pow_msin", ps, device, (dtype,), (f, tp))
+    if device.type == "cpu":
+        return power_matmul_reference(a_re, a_im, pc, ps)
+    require_cuda("power_matmul", device)
+    out = torch.empty((r,), dtype=torch.float32, device=device)
+    lib = _library()
+    err = lib.power_matmul_launch(
+        a_re.data_ptr(), a_im.data_ptr(), pc.data_ptr(), ps.data_ptr(),
+        out.data_ptr(), r, f, tp, int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            "power_matmul kernel launch failed: "
+            + lib.power_matmul_error_string(err).decode()
+        )
+    power_matmul.launches += 1
+    return out
+
+
+power_matmul.launches = 0

@@ -35,11 +35,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(name: str, sources) -> str:
-    """Path of the shared library built from ``sources``; compiles it if no
-    build of these exact sources and flags exists.  The compiler's output
-    (register and shared-memory use from ``-Xptxas -v``) is kept beside it
-    as ``<library>.log``."""
+def _target(name: str, sources):
+    """(library path, temporary path, nvcc command) of one build, keyed by
+    the sources and flags."""
     digest = hashlib.sha256()
     for flag in ARCH_FLAGS + FLAGS:
         digest.update(flag.encode())
@@ -47,17 +45,39 @@ def build(name: str, sources) -> str:
         with open(src, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, *FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(out + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed building {name}:\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    return out, tmp, [_nvcc(), *ARCH_FLAGS, *FLAGS, "-o", tmp, *sources]
+
+
+def build_all(specs) -> list:
+    """Paths of the shared libraries of ``specs`` [(name, sources), ...].
+    Every missing library is compiled, all at once (one ``nvcc`` process
+    each).  The compiler's output (register and shared-memory use from
+    ``-Xptxas -v``) is kept beside each library as ``<library>.log``."""
+    targets = [_target(name, sources) for name, sources in specs]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    running = [
+        (name, out, tmp, cmd,
+         subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True))
+        for (name, _), (out, tmp, cmd) in zip(specs, targets)
+        if not os.path.exists(out)
+    ]
+    failed = []
+    for name, out, tmp, cmd, proc in running:
+        log, _ = proc.communicate()
+        with open(out + ".log", "w") as f:
+            f.write(" ".join(cmd) + "\n" + log)
+        if proc.returncode:
+            failed.append(f"nvcc failed building {name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [out for out, _, _ in targets]
+
+
+def build(name: str, sources) -> str:
+    """Path of the shared library built from ``sources`` (see
+    :func:`build_all`)."""
+    return build_all([(name, sources)])[0]

@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's live per-block step on one CUDA card and check it.
+"""Drive the PyTorch port's live and replay paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failed check raises, so the exit code is non-zero):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the swarm-chain kernel from ``beamforming_lk_tpu_torch/csrc``;
-3. kernel against its plain twin at the deployment shapes (64 and 256 mics,
-   27 particle rows, bf16 and f32 windows), with times from CUDA events;
-4. a small end-to-end check: 9 blocks through the f32 profile on the card
+2. build the kernels from ``beamforming_lk_tpu_torch/csrc``, one ``nvcc``
+   per source, all at once;
+3. the swarm-chain kernel (K1) against its plain twin at the deployment
+   shapes (64 and 256 mics, 27 particle rows, bf16 and f32 windows), with
+   times from CUDA events;
+4. the chunk kernel (K2, 12 blocks a launch) against its twin and against
+   12 launches of K1, at the same shapes, with times;
+5. the power-stage kernel (K3) against its twin at the replay shapes
+   (16 384 and 32 768 rows, F = 161, Tp = 256, bf16 and f32), with times;
+6. a small end-to-end check: 9 blocks through the f32 profile on the card
    and on the CPU (the twin), outputs compared;
-5. the slice: ``AwpuPipeline(realtime(Config()), channels=64|256)`` on 96
-   plane-wave blocks through ``process_block``, locked on the source, with
-   the kernel launched once per block and the ms per block;
-6. one JSON line of kernel results, then the final status line.
+7. the live slice: ``AwpuPipeline(realtime(Config()), channels=64|256)`` on
+   96 plane-wave blocks through ``process_block``, locked on the source,
+   with K1 launched once per block and the ms per block;
+8. the replay slice: the same pipelines on 96 blocks through
+   ``process_blocks``, with K2 launched once per 12 blocks, its first 24
+   blocks held against ``process_block`` from the same seed, and the ms
+   per block;
+9. the chunked heatmap at 256 mics through K3 (``power_path="pallas"``, as
+   ``bench.py``'s chunked variant) against the fused path, and the
+   heatmap-only replay on 96 blocks;
+10. one JSON line of kernel results, then the final status line.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ SOURCE = (0.5, 1.2, 5000.0)          # theta, phi [rad], frequency [Hz]
 BUDGET_MS = 256 / 48828.0 * 1e3      # one block of audio: 5.24 ms
 N_BLOCKS = 96
 N_TRACKERS, N_SEEKERS = 10, 16       # TrackerConfig defaults: P = 27 rows
+CHUNK = 12                           # realtime().dsp.fused_chunk
 
 
 def _card_line() -> str:
@@ -123,6 +137,43 @@ def chain_operands(channels: int, compute: str, device, seed: int = 0):
     return ops, kw
 
 
+def full_chain_tol(compute: str) -> dict:
+    """Kernel-vs-twin bounds over the full chain (see compare_kernel)."""
+    if compute == "bfloat16":
+        return dict(pub=1e-3, seek=5e-2, grad=1e-2, beam=1e-3, mean=1e-2)
+    return dict(pub=1e-4, seek=5e-2, grad=1e-3, beam=1e-4, mean=1e-2)
+
+
+def chain_errors(got, want, tol, what: str, all_grads: bool = False) -> dict:
+    """Errors of one block's kernel outputs ``got = (state [8, P], mean,
+    beam)`` against ``want``: tracking flags and start stamps must be
+    equal, and each error within ``tol`` (directions by great-circle angle,
+    published rows and seekers apart; gradients, beam and mean relative to
+    their scale).  Raises on a miss; returns the errors."""
+    gs, gm, gb = got
+    ws, wm, wb = want
+    pub = slice(0, N_TRACKERS + 1)                  # trackers | listener
+    seek = slice(N_TRACKERS + 1, None)
+    for name, x, y in (("tracking", gs[6], ws[6]), ("start", gs[7], ws[7])):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{name} differs at {what}: {x} vs {y}")
+    scale = lambda v: max(float(np.abs(v).max()), 1e-30)  # noqa: E731
+    grad_rows = slice(None) if all_grads else pub
+    errs = {
+        "pub": _angle(gs[0, pub], gs[1, pub], ws[0, pub], ws[1, pub]),
+        "seek": _angle(gs[0, seek], gs[1, seek], ws[0, seek], ws[1, seek]),
+        "grad": max(float(np.abs(gs[i, grad_rows] - ws[i, grad_rows]).max())
+                    / scale(ws[i, grad_rows]) for i in range(2, 6)),
+        "beam": float(np.abs(gb - wb).max()) / scale(wb),
+        "mean": float(abs(gm - wm)) / scale(wm),
+    }
+    for name, e in errs.items():
+        if not np.isfinite(e) or e > tol[name]:
+            raise AssertionError(f"kernel vs twin {name} error {e:.3g} > "
+                                 f"{tol[name]} at {what}")
+    return errs
+
+
 def compare_kernel(channels: int, compute: str, device, timing: bool):
     """Kernel (``swarm_chain``) against the twin on identical operands, at
     the deployment shapes, in two settings.  Directions are compared by
@@ -148,15 +199,10 @@ def compare_kernel(channels: int, compute: str, device, timing: bool):
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 
     ops, kw = chain_operands(channels, compute, device)
-    bf16 = compute == "bfloat16"
-    pub = slice(0, N_TRACKERS + 1)                  # trackers | listener
-    seek = slice(N_TRACKERS + 1, None)
     settings = (
         ("1 sub-step", dict(kw, n_iter=1, n_sub=1, refine=1),
          dict(pub=1e-5, seek=1e-5, grad=1e-4, beam=1e-5, mean=1e-5)),
-        ("full chain", kw,
-         dict(pub=1e-3, seek=5e-2, grad=1e-2, beam=1e-3, mean=1e-2) if bf16
-         else dict(pub=1e-4, seek=5e-2, grad=1e-3, beam=1e-4, mean=1e-2)),
+        ("full chain", kw, full_chain_tol(compute)),
     )
     for label, kws, tol in settings:
         jumps = ops[4][:, :kws["n_iter"]].contiguous()
@@ -165,27 +211,10 @@ def compare_kernel(channels: int, compute: str, device, timing: bool):
         want = ctk.swarm_chain_reference(*args, **kws)
         if device != "cpu":
             torch.cuda.synchronize()
-        gs, gm, gb = (x.cpu().numpy() for x in got)
-        ws, wm, wb = (x.cpu().numpy() for x in want)
-        for name, x, y in (("tracking", gs[6], ws[6]), ("start", gs[7], ws[7])):
-            if not np.array_equal(x, y):
-                raise AssertionError(f"{name} differs at {channels} mics "
-                                     f"{compute} {label}: {x} vs {y}")
-        scale = lambda v: max(float(np.abs(v).max()), 1e-30)  # noqa: E731
-        grad_rows = slice(None) if label == "1 sub-step" else pub
-        errs = {
-            "pub": _angle(gs[0, pub], gs[1, pub], ws[0, pub], ws[1, pub]),
-            "seek": _angle(gs[0, seek], gs[1, seek], ws[0, seek], ws[1, seek]),
-            "grad": max(float(np.abs(gs[i, grad_rows] - ws[i, grad_rows]).max())
-                        / scale(ws[i, grad_rows]) for i in range(2, 6)),
-            "beam": float(np.abs(gb - wb).max()) / scale(wb),
-            "mean": float(abs(gm - wm)) / scale(wm),
-        }
-        for name, e in errs.items():
-            if not np.isfinite(e) or e > tol[name]:
-                raise AssertionError(f"kernel vs twin {name} error {e:.3g} > "
-                                     f"{tol[name]} at {channels} mics "
-                                     f"{compute} {label}")
+        what = f"{channels} mics {compute} {label}"
+        errs = chain_errors([x.cpu().numpy() for x in got],
+                            [x.cpu().numpy() for x in want], tol, what,
+                            all_grads=label == "1 sub-step")
         print(f"kernel vs twin {channels:3d} mics {compute:8s} {label:10s}: "
               + "  ".join(f"{k} {e:.3g} (tol {tol[k]:g})"
                           for k, e in errs.items()), flush=True)
@@ -256,30 +285,226 @@ def _state_to(state, device):
     return move(state)
 
 
-def run_slice(channels: int, device):
-    """96 plane-wave blocks through the realtime profile; returns
-    (kernel launches, ms per block on the device clock, host ms/block)."""
+def _reset_counts():
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    ctk.swarm_chain.launches = ctk.swarm_chunk.launches = 0
+    fd.power_matmul.launches = 0
+
+
+def _counts() -> dict:
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    return {"swarm_chain": ctk.swarm_chain.launches,
+            "swarm_chunk": ctk.swarm_chunk.launches,
+            "power_matmul": fd.power_matmul.launches}
+
+
+def chunk_operands(channels: int, compute: str, device, seed: int = 0):
+    """Operands of one chunk-kernel launch of CHUNK blocks at the deployment
+    shapes: the rows of :func:`chain_operands` (so merge, jump and promote
+    fire), CHUNK consecutive windows of the plane wave, per-block reference
+    powers and jump draws, and a seeker reset before block 5."""
     import torch
 
     from beamforming_lk_tpu_torch import Config, realtime
-    from beamforming_lk_tpu_torch.app import AwpuPipeline
     from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import delay as dl
+
+    ops, kw = chain_operands(channels, compute, device, seed)
+    xyz, rows = ops[0], ops[3]
+    cfg = realtime(Config())
+    tc, t = cfg.tracker, cfg.dsp.block_size
+    span, nt, ns, p = kw["span"], N_TRACKERS, N_SEEKERS, rows.shape[1]
+    rng = np.random.default_rng(seed + 1)
+    stream = plane_wave_block(ant.multi_array_cluster(channels), [SOURCE], 0,
+                              span + CHUNK * t, cfg.array, noise_std=0.02,
+                              rng=rng)
+    pw = torch.as_tensor(np.stack([stream[:, k * t:k * t + span + t]
+                                   for k in range(CHUNK)]), device=device)
+    bp = ctk.bandpass_window(pw)
+    bp = bp.to(torch.bfloat16) if compute == "bfloat16" else bp
+    jumps = np.zeros((CHUNK, 2, tc.iterations, p), np.float32)
+    jumps[..., nt + 1:] = (rng.uniform(-1, 1, (CHUNK, 2, tc.iterations, ns))
+                           * tc.theta_limit / 2)
+    resets = np.zeros((CHUNK, 3, p), np.float32)
+    resets[5, 0] = 1.0
+    resets[:, 1, nt + 1:] = rng.uniform(0, tc.theta_limit, (CHUNK, ns))
+    resets[:, 2, nt + 1:] = rng.uniform(0, 2 * np.pi, (CHUNK, ns))
+    refs = dl.das_power(pw[:, 0, span - 2:span - 2 + t], divisor=t - 2)
+    ops = (xyz, bp.contiguous(), pw.contiguous(), rows,
+           torch.as_tensor(jumps, device=device),
+           torch.as_tensor(resets, device=device), refs.contiguous())
+    kw = dict(kw)
+    kw["block_index0"] = kw.pop("block_index")
+    return ops, kw
+
+
+def compare_chunk(channels: int, compute: str, device):
+    """The chunk kernel (``swarm_chunk``, CHUNK blocks) against its twin and
+    against CHUNK launches of the single-block kernel on the same operands.
+
+    - Each block k against one twin block from the state the kernel carried
+      into it, held to the full-chain bounds of :func:`compare_kernel`.
+      (Chained over 12 bf16 blocks, twin and kernel seekers drift apart by
+      up to 0.4 rad at 256 mics: bf16 rounding is discontinuous and the
+      seekers explore; the published rows and flags stay together.)
+    - Against CHUNK launches of K1 (the same device code, the operands
+      carried between launches by the twin's carry): tracking flags equal,
+      every row's direction within 1e-5 rad.
+
+    Returns (worst published-row error vs the twin, K2 ms, twin ms)."""
+    import torch
+
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 
-    cfg = realtime(Config())
-    pipe = AwpuPipeline(cfg, channels=channels, seed=0, device=device)
+    ops, kw = chunk_operands(channels, compute, device)
+    got = ctk.swarm_chunk(*ops, **kw)
+    repeated = ctk.swarm_chunk_reference(*ops, chain=ctk.swarm_chain, **kw)
+    tol = full_chain_tol(compute)
+    worst = dict.fromkeys(tol, 0.0)
+    rows = ops[3]
+    for k in range(CHUNK):
+        one = ops[:1] + tuple(x[k:k + 1] for x in ops[1:3]) + (rows,) + tuple(
+            x[k:k + 1] for x in ops[4:])
+        want = ctk.swarm_chunk_reference(
+            *one, **dict(kw, block_index0=kw["block_index0"] + k))
+        errs = chain_errors([o[k].cpu().numpy() for o in got],
+                            [o[0].cpu().numpy() for o in want], tol,
+                            f"{channels} mics {compute} chunk block {k}")
+        worst = {n: max(worst[n], e) for n, e in errs.items()}
+        rows = ctk.carry_rows(rows, got[0][k])
+    gs, rs = got[0].cpu().numpy(), repeated[0].cpu().numpy()
+    if not np.array_equal(gs[:, 6], rs[:, 6]):
+        raise AssertionError(f"chunk vs repeated K1 flags differ at {channels} "
+                             f"mics {compute}")
+    rep = max(_angle(gs[k, 0], gs[k, 1], rs[k, 0], rs[k, 1]) for k in range(CHUNK))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, repeated))
+    if not rep <= 1e-5:
+        raise AssertionError(f"chunk vs repeated K1 direction {rep:.3g} > 1e-5 "
+                             f"at {channels} mics {compute}")
+    ms = _cuda_ms(lambda: ctk.swarm_chunk(*ops, **kw), 20)
+    plain_ms = _cuda_ms(lambda: ctk.swarm_chunk_reference(*ops, **kw), 2)
+    k1_ms = _cuda_ms(
+        lambda: ctk.swarm_chunk_reference(*ops, chain=ctk.swarm_chain, **kw), 5)
+    print(f"chunk vs twin {channels:3d} mics {compute:8s} {CHUNK} blocks, worst "
+          "block: " + "  ".join(f"{k} {e:.3g} (tol {tol[k]:g})"
+                                for k, e in worst.items())
+          + f"; vs {CHUNK} x K1: flags equal, direction {rep:.3g} (tol 1e-5), "
+          f"bitwise equal {bitwise}", flush=True)
+    print(f"  time per launch: K2 {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+          f"{CHUNK} x K1 {k1_ms:.4f} ms", flush=True)
+    return worst["pub"], ms, plain_ms
+
+
+def compare_power(rows: int, compute: str, device):
+    """The power-stage kernel (``power_matmul``) against its twin on
+    [rows, 161] x [161, 256] operands.  Both widen the same (rounded)
+    inputs to f32 and differ only in summation order: powers within 2e-5
+    of the largest.  Returns (max abs error, kernel ms, twin ms)."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    g = torch.Generator(device=device).manual_seed(rows)
+    dtype = getattr(torch, compute)
+    a_re, a_im = (torch.randn((rows, 161), generator=g, device=device).to(dtype)
+                  for _ in range(2))
+    pc, ps = (0.05 * torch.randn((161, 256), generator=g, device=device)
+              for _ in range(2))
+    got = fd.power_matmul(a_re, a_im, pc, ps)
+    want = fd.power_matmul_reference(a_re, a_im, pc, ps)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    if not (torch.isfinite(got).all() and rel <= 2e-5):
+        raise AssertionError(f"power kernel vs twin {rel:.3g} > 2e-5 at "
+                             f"{rows} rows {compute}")
+    ms = _cuda_ms(lambda: fd.power_matmul(a_re, a_im, pc, ps), 50)
+    plain_ms = _cuda_ms(lambda: fd.power_matmul_reference(a_re, a_im, pc, ps), 50)
+    print(f"power kernel vs twin {rows:5d} rows {compute:8s}: max abs {err:.3g}, "
+          f"{rel:.3g} of the largest (tol 2e-5); kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms", flush=True)
+    return err, ms, plain_ms
+
+
+def _source_cell(cfg):
+    src_xyz = np.array([math.sin(SOURCE[0]) * math.cos(SOURCE[1]),
+                        math.sin(SOURCE[0]) * math.sin(SOURCE[1]),
+                        math.cos(SOURCE[0])])
+    rows, cols = cfg.mimo.rows, cfg.mimo.columns
+    sep = math.sin(math.radians(cfg.mimo.fov_degrees / 2)) / (rows / 2)
+    want_c = round((src_xyz[0] + (cols - 1) * sep / 2) / sep)
+    want_r = round((src_xyz[1] + (rows - 1) * sep / 2) / sep)
+    return src_xyz, (want_r, want_c)
+
+
+def check_map(what: str, cfg, powers) -> tuple:
+    """The heatmap ``powers`` [D] is finite and peaks within one cell of
+    the source; returns (peak cell, source cell)."""
+    powers = powers.cpu().numpy()
+    if not np.isfinite(powers).all():
+        raise AssertionError(f"{what}: heatmap not finite")
+    _, want = _source_cell(cfg)
+    peak = divmod(int(np.argmax(powers)), cfg.mimo.columns)
+    if max(abs(peak[0] - want[0]), abs(peak[1] - want[1])) > 1:
+        raise AssertionError(f"{what}: heatmap peak at {peak}, source at {want}")
+    return peak, want
+
+
+def check_lock(what: str, cfg, pipe, beam, powers) -> str:
+    """A finite non-zero MISO beam, a published target within 5 deg of the
+    source, and the heatmap peak on it; returns a line describing them."""
+    beam = beam.cpu().numpy()
+    if not (np.isfinite(beam).all() and np.abs(beam).max() > 0):
+        raise AssertionError(f"{what}: MISO beam not finite/non-zero")
+    tgts = pipe.targets()
+    src_xyz, _ = _source_cell(cfg)
+    off = [math.degrees(math.acos(min(1.0, float(np.dot(src_xyz, [
+        math.sin(t["theta"]) * math.cos(t["phi"]),
+        math.sin(t["theta"]) * math.sin(t["phi"]), math.cos(t["theta"])])))))
+        for t in tgts]
+    if not off or min(off) > 5.0:
+        raise AssertionError(f"{what}: no target within 5 deg: {tgts}")
+    peak, want = check_map(what, cfg, powers)
+    return (f"target {min(off):.2f} deg off, heatmap peak {peak} vs source "
+            f"{want}, beam peak {np.abs(beam).max():.4g}")
+
+
+def _plane_wave_blocks(pipe, cfg, channels, device):
+    import torch
+
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+
     rng = np.random.default_rng(channels)
-    blocks = torch.as_tensor(np.stack([
+    return torch.as_tensor(np.stack([
         plane_wave_block(pipe.points, [SOURCE], i * 256, 256, cfg.array,
                          noise_std=0.02, rng=rng)
         for i in range(N_BLOCKS)
     ]), device=device)
+
+
+def run_slice(channels: int, device):
+    """96 plane-wave blocks through the realtime profile, block by block;
+    returns (K1 launches, ms per block on the device clock, host
+    ms/block)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = realtime(Config())
+    pipe = AwpuPipeline(cfg, channels=channels, seed=0, device=device)
+    blocks = _plane_wave_blocks(pipe, cfg, channels, device)
     warm = 16
-    on_card = device != "cpu"
-    ctk.swarm_chain.launches = 0
+    _reset_counts()
     last_map = None
     for i in range(N_BLOCKS):
-        if i == warm and on_card:
+        if i == warm:
             torch.cuda.synchronize()
             e0 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -287,49 +512,151 @@ def run_slice(channels: int, device):
         out = pipe.process_block(blocks[i])
         if i % cfg.mimo.heatmap_every == 0:
             last_map = out.powers
-    ms = host_ms = float("nan")
-    if on_card:
-        e1 = torch.cuda.Event(enable_timing=True)
-        e1.record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - h0) * 1e3 / (N_BLOCKS - warm)
-        ms = e0.elapsed_time(e1) / (N_BLOCKS - warm)
-    launches = ctk.swarm_chain.launches
+    e1 = torch.cuda.Event(enable_timing=True)
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / (N_BLOCKS - warm)
+    ms = e0.elapsed_time(e1) / (N_BLOCKS - warm)
+    counts = _counts()
+    if counts != {"swarm_chain": N_BLOCKS, "swarm_chunk": 0, "power_matmul": 0}:
+        raise AssertionError(f"{channels} mics live: launches {counts} for "
+                             f"{N_BLOCKS} blocks")
+    lock = check_lock(f"{channels} mics live", cfg, pipe, out.miso_beam, last_map)
+    print(f"live slice {channels:3d} mics: {counts['swarm_chain']} K1 launches / "
+          f"{N_BLOCKS} blocks, {lock}; {ms:.4f} ms/block device, "
+          f"{host_ms:.4f} ms/block host (budget {BUDGET_MS:.2f} ms)", flush=True)
+    return counts["swarm_chain"], ms, host_ms
 
-    expect = N_BLOCKS if on_card else 0
-    if launches != expect:
-        raise AssertionError(f"{channels} mics: {launches} kernel launches "
-                             f"for {N_BLOCKS} blocks")
-    beam = out.miso_beam.cpu().numpy()
-    if not (np.isfinite(beam).all() and np.abs(beam).max() > 0):
-        raise AssertionError(f"{channels} mics: MISO beam not finite/non-zero")
-    tgts = pipe.targets()
-    src_xyz = np.array([math.sin(SOURCE[0]) * math.cos(SOURCE[1]),
-                        math.sin(SOURCE[0]) * math.sin(SOURCE[1]),
-                        math.cos(SOURCE[0])])
-    off = [math.degrees(math.acos(min(1.0, float(np.dot(src_xyz, [
-        math.sin(t["theta"]) * math.cos(t["phi"]),
-        math.sin(t["theta"]) * math.sin(t["phi"]), math.cos(t["theta"])])))))
-        for t in tgts]
-    if not off or min(off) > 5.0:
-        raise AssertionError(f"{channels} mics: no target within 5 deg: {tgts}")
-    powers = last_map.cpu().numpy()
-    if not np.isfinite(powers).all():
-        raise AssertionError(f"{channels} mics: heatmap not finite")
-    rows, cols = cfg.mimo.rows, cfg.mimo.columns
-    sep = math.sin(math.radians(cfg.mimo.fov_degrees / 2)) / (rows / 2)
-    want_c = round((src_xyz[0] + (cols - 1) * sep / 2) / sep)
-    want_r = round((src_xyz[1] + (rows - 1) * sep / 2) / sep)
-    peak_r, peak_c = divmod(int(np.argmax(powers)), cols)
-    if max(abs(peak_r - want_r), abs(peak_c - want_c)) > 1:
-        raise AssertionError(f"{channels} mics: heatmap peak at ({peak_r}, "
-                             f"{peak_c}), source at ({want_r}, {want_c})")
-    print(f"slice {channels:3d} mics: {launches} launches / {N_BLOCKS} blocks, "
-          f"target {min(off):.2f} deg off, heatmap peak ({peak_r}, {peak_c}) vs "
-          f"source ({want_r}, {want_c}), beam peak {np.abs(beam).max():.4g}; "
-          f"{ms:.4f} ms/block device, {host_ms:.4f} ms/block host "
-          f"(budget {BUDGET_MS:.2f} ms)", flush=True)
-    return launches, ms, host_ms
+
+def run_replay(channels: int, device):
+    """The replay path: the realtime profile (fused_chunk 12) on 96
+    plane-wave blocks through ``process_blocks``, 24 then 72 blocks (the
+    second call is timed).  K2 must launch once per 12 blocks and K1 never.
+    The first 24 blocks are held against ``process_block`` from the same
+    seed: equal flags, directions within 1e-5 rad, powers within 1e-4 of
+    the peak.  Returns (K2 launches, device ms/block, host ms/block)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = realtime(Config())
+    pipe = AwpuPipeline(cfg, channels=channels, seed=0, device=device)
+    blocks = _plane_wave_blocks(pipe, cfg, channels, device)
+    head = 24
+    _reset_counts()
+    first = pipe.process_blocks(blocks[:head])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    h0 = time.perf_counter()
+    out = pipe.process_blocks(blocks[head:])
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / (N_BLOCKS - head)
+    ms = e0.elapsed_time(e1) / (N_BLOCKS - head)
+    counts = _counts()
+    want = {"swarm_chain": 0, "swarm_chunk": N_BLOCKS // CHUNK, "power_matmul": 0}
+    if counts != want:
+        raise AssertionError(f"{channels} mics replay: launches {counts}, "
+                             f"expected {want}")
+    lock = check_lock(f"{channels} mics replay", cfg, pipe, out.miso_beam[-1],
+                      out.powers[-1])
+
+    ref = AwpuPipeline(cfg, channels=channels, seed=0, device=device)
+    worst = dict(direction=0.0, powers=0.0)
+    for i in range(head):
+        b = ref.process_block(blocks[i])
+        if not torch.equal(first.targets.valid[i], b.targets.valid):
+            raise AssertionError(f"{channels} mics replay block {i}: flags "
+                                 "differ from process_block")
+        worst["direction"] = max(worst["direction"], _angle(
+            first.targets.theta[i].cpu(), first.targets.phi[i].cpu(),
+            b.targets.theta.cpu(), b.targets.phi.cpu()))
+        worst["powers"] = max(worst["powers"], float(
+            (first.powers[i] - b.powers).abs().max() / b.powers.abs().max()))
+    if not (worst["direction"] <= 1e-5 and worst["powers"] <= 1e-4):
+        raise AssertionError(f"{channels} mics replay vs process_block: {worst}")
+    print(f"replay slice {channels:3d} mics: {counts['swarm_chunk']} K2 launches, "
+          f"0 K1 / {N_BLOCKS} blocks, {lock}; first {head} blocks vs "
+          f"process_block: flags equal, direction {worst['direction']:.3g}, "
+          f"powers {worst['powers']:.3g}; {ms:.4f} ms/block device, "
+          f"{host_ms:.4f} ms/block host", flush=True)
+    return counts["swarm_chunk"], ms, host_ms
+
+
+def run_chunked_heatmap(device):
+    """The chunked heatmap at 256 mics on a 64 x 64 grid over 8 windows, as
+    ``bench.py``'s chunked variant runs it: ``power_path="pallas"`` (one K3
+    launch for all 8 x 4096 rows) against ``"fused"``, powers within 1e-4
+    of the peak and on the source; then the heatmap-only replay
+    (``heatmap_chunk=8``, a map per block) on 96 blocks.  Returns (K3
+    launches, K3 path ms, fused path ms)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    cfg = realtime(Config())
+    dsp, n_win = cfg.dsp, 8
+    pts = ant.multi_array_cluster(256)
+    models = {pp: fd.make_fft_heatmap_model(pts, cfg.mimo, dsp, cfg.array,
+                                            compute=dsp.compute, power_path=pp,
+                                            device=device)
+              for pp in ("pallas", "fused")}
+    stream = plane_wave_block(pts, [SOURCE], 0, dsp.shift_range + n_win * 256,
+                              cfg.array, noise_std=0.02,
+                              rng=np.random.default_rng(8))
+    windows = torch.as_tensor(stream, device=device).unfold(
+        -1, dsp.shift_range + 256, 256).movedim(-2, 0)
+    _reset_counts()
+    got = fd.fft_heatmap_powers_chunked(windows, models["pallas"])
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != {"swarm_chain": 0, "swarm_chunk": 0, "power_matmul": 1}:
+        raise AssertionError(f"chunked heatmap: launches {counts}")
+    want = fd.fft_heatmap_powers_chunked(windows, models["fused"])
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"chunked heatmap pallas vs fused {err:.3g} > 1e-4")
+    for i in range(n_win):
+        check_map(f"chunked heatmap window {i}", cfg, got[i])
+    ms = _cuda_ms(lambda: fd.fft_heatmap_powers_chunked(windows, models["pallas"]), 20)
+    fused_ms = _cuda_ms(lambda: fd.fft_heatmap_powers_chunked(windows, models["fused"]), 20)
+    print(f"chunked heatmap 256 mics {n_win} x 64x64 {dsp.compute}: 1 K3 launch, "
+          f"pallas vs fused {err:.3g} of the peak (tol 1e-4), peaks on the source; "
+          f"{ms:.4f} ms per call through K3, {fused_ms:.4f} ms fused", flush=True)
+
+    hcfg = dataclasses.replace(cfg, mimo=dataclasses.replace(
+        cfg.mimo, heatmap_every=1, heatmap_chunk=n_win))
+    pipe = AwpuPipeline(hcfg, channels=256, enable_tracker=False,
+                        enable_miso=False, device=device)
+    if pipe.step.chunk != n_win:
+        raise AssertionError(f"heatmap-only replay chunk {pipe.step.chunk}")
+    blocks = _plane_wave_blocks(pipe, hcfg, 256, device)
+    head = 16
+    pipe.process_blocks(blocks[:head])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    h0 = time.perf_counter()
+    out = pipe.process_blocks(blocks[head:])
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / (N_BLOCKS - head)
+    hm_ms = e0.elapsed_time(e1) / (N_BLOCKS - head)
+    peak, src = check_map("heatmap-only replay", hcfg, out.powers[-1])
+    if out.miso_beam.any() or out.targets.valid.any():
+        raise AssertionError("heatmap-only replay published a target or a beam")
+    print(f"heatmap-only replay 256 mics, chunks of {n_win}: peak {peak} vs "
+          f"source {src}; {hm_ms:.4f} ms/block device, {host_ms:.4f} ms/block "
+          "host", flush=True)
+    return counts["power_matmul"], ms, fused_ms
 
 
 def main() -> int:
@@ -340,35 +667,64 @@ def main() -> int:
     print(_card_line(), flush=True)
     import beamforming_lk_tpu_torch  # noqa: F401  (fails outside the repo)
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
     from beamforming_lk_tpu_torch.ops import nvcc
 
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
+    # f32 products in full precision on every phase (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    libs = nvcc.build_all([("swarm_chain", [ctk._SOURCE]),
+                           ("power_matmul", [fd._SOURCE])])
     ctk._library()
-    print(f"built swarm_chain in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in open(nvcc.build("swarm_chain", [ctk._SOURCE]) + ".log"):
-        if "registers" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    fd._library()
+    print(f"built swarm_chain and power_matmul in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
+          flush=True)
+    for lib in libs:
+        for line in open(lib + ".log"):
+            if "registers" in line or "smem" in line:
+                print("  ptxas:", line.strip())
 
-    results = {}
+    k1 = {}
     for ch in (64, 256):
         for compute in ("bfloat16", "float32"):
-            results[ch, compute] = compare_kernel(ch, compute, "cuda", timing=True)
-    end_to_end_check("cuda")
-    launches = 0
+            k1[ch, compute] = compare_kernel(ch, compute, "cuda", timing=True)
+    k2 = {}
     for ch in (64, 256):
-        launches += run_slice(ch, "cuda")[0]
+        for compute in ("bfloat16", "float32"):
+            k2[ch, compute] = compare_chunk(ch, compute, "cuda")
+    k3 = {}
+    for rows in (16384, 32768):
+        for compute in ("bfloat16", "float32"):
+            k3[rows, compute] = compare_power(rows, compute, "cuda")
+    end_to_end_check("cuda")
+    launches = dict.fromkeys(("swarm_chain", "swarm_chunk", "power_matmul"), 0)
+    for ch in (64, 256):
+        launches["swarm_chain"] += run_slice(ch, "cuda")[0]
+    for ch in (64, 256):
+        launches["swarm_chunk"] += run_replay(ch, "cuda")[0]
+    launches["power_matmul"] += run_chunked_heatmap("cuda")[0]
 
-    err = max(r[0] for r in results.values())
-    _, ms, plain_ms = results[64, "bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "swarm_chain", "route": "cuda",
-        "source": "beamforming_lk_tpu_torch/csrc/swarm_chain.cu",
-        "replaces": "beamforming_lk_tpu/ops/pallas_tracker.py:1011",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    def row(name, source, replaces, results, key):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"beamforming_lk_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r[0] for r in results.values()),
+            "ms": results[key][1], "plain_ms": results[key][2],
+        }
+
+    print(json.dumps({"kernels": [
+        row("swarm_chain", "swarm_chain.cu",
+            "beamforming_lk_tpu/ops/pallas_tracker.py:1011", k1, (64, "bfloat16")),
+        row("swarm_chunk", "swarm_chain.cu",
+            "beamforming_lk_tpu/ops/pallas_tracker.py:1160", k2, (64, "bfloat16")),
+        row("power_matmul", "power_matmul.cu",
+            "beamforming_lk_tpu/ops/fft_das.py:412", k3, (16384, "bfloat16")),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
-"""Boundaries of the port: it loads no JAX, dispatches the swarm-chain
-kernel on the device of its tensors, and raises NotImplementedError for
-every configuration outside the ported slice."""
+"""Boundaries of the port: it loads no JAX, dispatches its kernels on the
+device of their tensors, and raises NotImplementedError for every
+configuration outside the ported slices."""
 
 import dataclasses
 import os
@@ -17,6 +17,7 @@ from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
 from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
 from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
+from beamforming_lk_tpu_torch.ops import fft_das as fd  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = tcfg.realtime(tcfg.Config(
@@ -64,6 +65,34 @@ def test_swarm_chain_rejects_devices_other_than_cuda_and_cpu():
         )
 
 
+def test_swarm_chunk_rejects_devices_other_than_cuda_and_cpu():
+    meta = torch.device("meta")
+    p, k = 13, 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ctk.swarm_chunk(
+            torch.empty((4, 64), device=meta),
+            torch.empty((k, 64, 286), device=meta),
+            torch.empty((k, 64, 288), device=meta),
+            torch.empty((16, p), device=meta),
+            torch.empty((k, 2, 1, p), device=meta),
+            torch.empty((k, 3, p), device=meta), torch.empty((k,), device=meta),
+            block_index0=0, n_iter=1, n_sub=1, refine=1, n_trackers=4,
+            span=32, theta_limit=1.5, divisor=256.0, closeness=0.08,
+            error_threshold=1.0,
+        )
+
+
+def test_power_matmul_rejects_devices_other_than_cuda_and_cpu():
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fd.power_matmul(
+            torch.empty((100, 161), device=meta),
+            torch.empty((100, 161), device=meta),
+            torch.empty((161, 256), device=meta),
+            torch.empty((161, 256), device=meta),
+        )
+
+
 def _replace(cfg, part, **kw):
     return dataclasses.replace(cfg, **{part: dataclasses.replace(
         getattr(cfg, part), **kw)})
@@ -71,7 +100,6 @@ def _replace(cfg, part, **kw):
 
 _OUTSIDE = {
     "mesh": dict(kwargs=dict(mesh=object())),
-    "fused_chunk": dict(cfg=_replace(SMALL, "dsp", fused_chunk=12)),
     "tracker_off": dict(kwargs=dict(enable_tracker=False)),
     "miso_off": dict(kwargs=dict(enable_miso=False)),
     "iterations_10": dict(cfg=_replace(SMALL, "tracker", iterations=10)),
@@ -99,6 +127,26 @@ def test_state_io_and_calibration_raise(method):
     args = () if method == "calibrate" else ("state.npz",)
     with pytest.raises(NotImplementedError):
         getattr(pipe, method)(*args)
+
+
+def test_fused_chunk_configuration_runs(monkeypatch):
+    """The realtime profile's fused_chunk=12 builds, and process_blocks of
+    12 blocks makes one call of the chunk kernel's wrapper."""
+    calls = []
+    real = ctk.swarm_chunk
+
+    def counting(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ctk, "swarm_chunk", counting)
+    assert SMALL.dsp.fused_chunk == 12
+    pipe = AwpuPipeline(SMALL)
+    out = pipe.process_blocks(np.zeros((12, 64, 256), np.float32))
+    assert calls == [12]
+    assert out.powers.shape == (12, 256) and out.miso_beam.shape == (12, 256)
+    assert out.targets.valid.shape == (12, 4)
+    assert pipe.state.block_index == 12
 
 
 def test_heatmap_can_be_disabled():
