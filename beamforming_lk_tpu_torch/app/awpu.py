@@ -1,4 +1,4 @@
-"""AWPU: the fused per-block processing step on one device
+"""AWPU: the per-block processing step on one device
 (counterpart of ``beamforming_lk_tpu.app.awpu``).
 
     step(state, block) ->
@@ -6,11 +6,13 @@
         target list          (GRADIENT worker, gradient_ascend.cpp:301-409)
         audio beam [T]       (MISO worker,    miso.cpp:25-55)
 
-Stages per 256-sample block: ring push and window, the separable-FFT
-heatmap on every ``heatmap_every``-th block (plain matrix products), the
-tracker swarm with the MISO listener through the swarm-chain kernel, and
-the published outputs.  The block counter and the heatmap decimation are
-host-side, so a block issues its device work without waiting on it.
+Stages per 256-sample block: ring push and window; the heatmap on every
+``heatmap_every``-th block, separable-FFT (plain matrix products) or dense
+(the DAS-beam kernel; also the fft backend's fallback for gain masks and
+non-lattice apertures); the tracker swarm, fused with the MISO listener
+at a real-time cadence, else the two as separate steps; and the published
+outputs.  The block counter and the heatmap decimation are host-side, so
+a block issues its device work without waiting on it.
 
 Replay (``AwpuPipeline.process_blocks``) runs ``fused_chunk`` blocks per
 launch of the chunk kernel, with their heatmaps at the decimated positions
@@ -26,6 +28,7 @@ Configurations outside the ported slices raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,7 +38,9 @@ from torch import nn
 from beamforming_lk_tpu_torch.io import ring as rg
 from beamforming_lk_tpu_torch.models import miso as ms
 from beamforming_lk_tpu_torch.models import tracker as tk
-from beamforming_lk_tpu_torch.models.mimo import make_mimo_grid, render_heatmap
+from beamforming_lk_tpu_torch.models.mimo import (
+    make_mimo_grid, make_mimo_model, mimo_power, render_heatmap,
+)
 from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import fft_das as fd
@@ -82,18 +87,19 @@ def _zero_targets(lead, n: int, device) -> tk.Targets:
 class AwpuStep(nn.Module):
     """The per-block step, ``forward(state, block, generator=None,
     draws=None) -> (state, AwpuOutputs)``, and the chunked replay of a
-    batch, :meth:`scan_chunks`.  ``enable_swarm=False`` is the heatmap-only
-    pipeline: no swarm, zero targets and a zero beam."""
+    batch, :meth:`scan_chunks`.  With the tracker off the targets are zero,
+    with the MISO off the beam is zero; with both off the pipeline is
+    heatmap-only."""
 
     def __init__(self, points, cfg, channel_mask=None, enable_mimo=True,
-                 enable_swarm=True, device=None):
+                 enable_tracker=True, enable_miso=True, device=None):
         super().__init__()
-        dsp, arr = cfg.dsp, cfg.array
+        dsp, arr, tc = cfg.dsp, cfg.array, cfg.tracker
         self.cfg = cfg
         self.enable_mimo = enable_mimo
         self.taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
         points = np.asarray(points, np.float32)
-        self.fft_model = None
+        self.fft_model = self.mimo_model = None
         if enable_mimo:
             theta, phi = make_mimo_grid(cfg.mimo)
             delays = ant.steering_delays_np(points, theta, phi,
@@ -104,36 +110,66 @@ class AwpuStep(nn.Module):
                     f"aperture needs a shift span of {span_needed:.0f} samples "
                     f"but DspConfig.shift_range is {dsp.shift_range}"
                 )
-            if cfg.mimo.backend != "fft":
-                raise _not_ported(f"heatmap backend {cfg.mimo.backend!r}")
-            self.fft_model = fd.make_fft_heatmap_model(
-                points, cfg.mimo, dsp, arr, channel_mask=channel_mask,
-                compute=dsp.compute, device=device,
-            )
-            if self.fft_model is None:
-                raise _not_ported(
-                    "the dense heatmap (the fft backend's fallback for "
-                    "non-lattice apertures and gain masks)"
+            if cfg.mimo.backend == "fft":
+                self.fft_model = fd.make_fft_heatmap_model(
+                    points, cfg.mimo, dsp, arr, channel_mask=channel_mask,
+                    compute=dsp.compute, device=device,
                 )
+                if self.fft_model is None:
+                    # The JAX package's own fallback to the dense heatmap.
+                    print("mimo backend 'fft' unavailable for this "
+                          "geometry/mask/mesh; using dense", file=sys.stderr)
+            if self.fft_model is None:
+                self.mimo_model = make_mimo_model(
+                    points, cfg.mimo, dsp, arr, channel_mask=channel_mask,
+                    compute=dsp.compute, device=device,
+                )
+                self.n_active = float(points.shape[1] if channel_mask is None
+                                      else np.sum(channel_mask))
         span = dl.probe_span(points, arr.samples_per_meter, self.taps,
                              dsp.shift_range)
-        self.swarm_step = self.chunk_step = None
-        if enable_swarm:
+        # Tracker and MISO both on at a real-time cadence share one swarm
+        # update (the JAX package's use_fused gate); otherwise each runs
+        # its own step.
+        fused = (enable_tracker and enable_miso and tc.iterations <= 4
+                 and tc.iterations * tc.tracker_steps >= 3)
+        self.swarm_step = self.tracker_step = self.miso_step = None
+        self.chunk_step = None
+        step_kw = dict(probe_span=span, device=device)
+        if fused:
             self.swarm_step = tk.make_fused_step_impl(
-                cfg.tracker, dsp, arr, points, channel_mask, probe_span=span,
-                device=device,
-            )
-        # Replay chunk: K-block kernel launches with the swarm, batched
-        # heatmaps without it; the heatmap decimation stays chunk-aligned.
+                tc, dsp, arr, points, channel_mask, **step_kw)
+        else:
+            if enable_tracker:
+                self.tracker_step = tk.make_swarm_step_impl(
+                    tc, dsp, arr, points, channel_mask, **step_kw)
+            if enable_miso:
+                self.miso_step = ms.make_miso_step_impl(
+                    tc, dsp, arr, points, channel_mask, **step_kw)
+        # Replay chunk: K-block kernel launches with the fused swarm on the
+        # kernel backend, batched heatmaps without a swarm; the heatmap
+        # decimation stays chunk-aligned.  Other pipelines replay block by
+        # block.
         self.every = max(cfg.mimo.heatmap_every, 1) if enable_mimo else 1
-        chunk = dsp.fused_chunk if enable_swarm else (
-            cfg.mimo.heatmap_chunk if enable_mimo else 0)
+        heatmap_only = not (enable_tracker or enable_miso)
+        if fused and tc.probe_kernel == "pallas":
+            chunk = dsp.fused_chunk
+        else:
+            chunk = cfg.mimo.heatmap_chunk if heatmap_only and enable_mimo else 0
         self.chunk = chunk if chunk > 1 and chunk % self.every == 0 else 0
-        if self.chunk and enable_swarm:
+        if self.chunk and fused:
             self.chunk_step = tk.make_fused_chunk_impl(
-                cfg.tracker, dsp, arr, points, channel_mask, probe_span=span,
-                device=device,
-            )
+                tc, dsp, arr, points, channel_mask, **step_kw)
+
+    def _maps(self, windows):
+        """Heatmap powers [D] of a window [C, T+S], or [K, D] of a stack
+        [K, C, T+S] in one batched call (one DAS-beam launch on the dense
+        path)."""
+        if self.fft_model is None:
+            return mimo_power(windows, self.mimo_model, self.n_active)
+        if windows.dim() == 2:
+            return fd.fft_heatmap_powers(windows, self.fft_model)
+        return fd.fft_heatmap_powers_chunked(windows, self.fft_model)
 
     def forward(self, state: AwpuState, block, generator=None, draws=None):
         cfg, dsp = self.cfg, self.cfg.dsp
@@ -142,20 +178,30 @@ class AwpuStep(nn.Module):
                                 self.taps)
         powers, prev_max = state.powers, state.prev_max
         if self.enable_mimo and state.block_index % cfg.mimo.heatmap_every == 0:
-            powers = fd.fft_heatmap_powers(window, self.fft_model)
+            powers = self._maps(window)
             a = cfg.mimo.ema_alpha
             prev_max = torch.max(powers) * a + (1.0 - a) * state.prev_max
         swarm, miso = state.swarm, state.miso
-        if self.swarm_step is None:
-            targets = _zero_targets((), cfg.tracker.n_trackers, block.device)
-            miso_beam = torch.zeros((dsp.block_size,), dtype=torch.float32,
-                                    device=block.device)
-        else:
+        if self.swarm_step is not None:
             swarm, targets, miso_p, miso_beam = self.swarm_step(
                 state.swarm, state.miso.particle, window, state.block_index,
                 generator=generator, draws=draws,
             )
             miso = miso._replace(particle=miso_p)
+        else:
+            if self.tracker_step is not None:
+                swarm, targets = self.tracker_step(
+                    state.swarm, window, state.block_index,
+                    generator=generator, draws=draws,
+                )
+            else:
+                targets = _zero_targets((), cfg.tracker.n_trackers,
+                                        block.device)
+            if self.miso_step is not None:
+                miso, miso_beam = self.miso_step(state.miso, window)
+            else:
+                miso_beam = torch.zeros((dsp.block_size,), dtype=torch.float32,
+                                        device=block.device)
         new_state = AwpuState(
             history=history,
             swarm=swarm,
@@ -207,8 +253,7 @@ class AwpuStep(nn.Module):
                     swarm, miso_p, windows, bi, generator=generator, draws=d_i,
                 )
             if self.enable_mimo:
-                maps = fd.fft_heatmap_powers_chunked(windows[::every],
-                                                     self.fft_model)
+                maps = self._maps(windows[::every])
                 emas = _ema_chain(maps.amax(dim=-1), prev_max,
                                   cfg.mimo.ema_alpha)
                 powers_k = maps.repeat_interleave(every, dim=0)
@@ -240,22 +285,14 @@ class AwpuStep(nn.Module):
 def make_awpu_step(points, cfg, channel_mask=None, mesh=None,
                    enable_mimo: bool = True, enable_tracker: bool = True,
                    enable_miso: bool = True, device=None) -> AwpuStep:
-    """Build the step for one device: the fused tracker + MISO step, or with
-    both off the heatmap-only step.  Raises ``NotImplementedError`` for what
-    the port does not carry: a mesh, the unfused tracker/MISO path (one of
-    the two disabled, or more than 4 iterations), and every probe backend
-    but the kernel."""
+    """Build the step for one device: the fused tracker + MISO step, the
+    unfused tracker and MISO steps (either one off, or more than 4
+    iterations), or with both off the heatmap-only step.  Raises
+    ``NotImplementedError`` for a mesh."""
     if mesh is not None:
         raise _not_ported("multi-device execution (mesh)")
-    tc = cfg.tracker
-    swarm = enable_tracker or enable_miso
-    if swarm and not (enable_tracker and enable_miso and tc.iterations <= 4
-                      and tc.iterations * tc.tracker_steps >= 3):
-        raise _not_ported(
-            "the unfused tracker/MISO path (tracker or MISO disabled alone, "
-            "or iterations > 4)"
-        )
-    return AwpuStep(points, cfg, channel_mask, enable_mimo, swarm, device)
+    return AwpuStep(points, cfg, channel_mask, enable_mimo, enable_tracker,
+                    enable_miso, device)
 
 
 def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device=None,

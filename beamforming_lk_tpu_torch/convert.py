@@ -1,7 +1,7 @@
 """Carry state and constants over from the JAX package.
 
-Both functions take the JAX objects' arrays as numpy (``np.asarray`` of each
-leaf, which needs no JAX import here) and return the port's tensors.
+Every function takes the JAX objects' arrays as numpy (``np.asarray`` of
+each leaf, which needs no JAX import here) and returns the port's tensors.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from beamforming_lk_tpu_torch.app.awpu import AwpuState
+from beamforming_lk_tpu_torch.models.mimo import MimoModel
 from beamforming_lk_tpu_torch.models.miso import MisoState
 from beamforming_lk_tpu_torch.models.tracker import Particles, SwarmState
 from beamforming_lk_tpu_torch.ops.fft_das import FftHeatmapModel
@@ -41,16 +42,19 @@ def swarm_state_from_jax(sw, device=None) -> SwarmState:
     )
 
 
+def miso_state_from_jax(ms, device=None) -> MisoState:
+    """A JAX ``MisoState`` whose leaves are numpy arrays -> the port's."""
+    return MisoState(particle=_particles(ms.particle, device),
+                     tracking=_t(ms.tracking, device, torch.bool))
+
+
 def awpu_state_from_jax(state, device=None) -> AwpuState:
     """A JAX ``AwpuState`` whose leaves are numpy arrays (its PRNG key is
     not read) -> the port's ``AwpuState``; the counters become host ints."""
     return AwpuState(
         history=_t(state.history, device, torch.float32),
         swarm=swarm_state_from_jax(state.swarm, device),
-        miso=MisoState(
-            particle=_particles(state.miso.particle, device),
-            tracking=_t(state.miso.tracking, device, torch.bool),
-        ),
+        miso=miso_state_from_jax(state.miso, device),
         prev_max=_t(state.prev_max, device, torch.float32),
         block_index=int(np.asarray(state.block_index)),
         powers=_t(state.powers, device, torch.float32),
@@ -75,3 +79,21 @@ def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
         n_active=model.n_active, use_bandpass=model.use_bandpass,
         compute=model.compute, power_path=model.power_path, device=device,
     )
+
+
+def mimo_model_from_jax(model, compute: str = "float32", device=None) -> MimoModel:
+    """The JAX ``MimoModel`` (its dense stencil ``weights`` [D, C, S]) ->
+    the port's model of the same beams: for each direction and channel the
+    ``taps`` columns from the first weighted one (moved back to fit the
+    span), which hold all of its weight."""
+    w = np.asarray(model.weights, np.float32)
+    s, taps = w.shape[-1], model.taps
+    nz = w != 0.0
+    shift = np.minimum(np.where(nz.any(-1), nz.argmax(-1), 0), s - taps)
+    idx = shift[..., None] + np.arange(taps)
+    tap_w = np.take_along_axis(w, idx, axis=-1)
+    if not np.array_equal(np.count_nonzero(tap_w, axis=-1), nz.sum(-1)):
+        raise ValueError(f"a stencil row has weight outside {taps} neighbouring taps")
+    return MimoModel(shift.astype(np.int32), tap_w, model.theta, model.phi,
+                     model.rows, model.columns, model.shift_range,
+                     model.use_bandpass, compute, device)

@@ -1,4 +1,4 @@
-// The whole per-block swarm update of the acoustic tracker as CUDA kernels.
+// The per-block swarm update of the acoustic tracker as CUDA kernels.
 //
 // swarm_chain_kernel replaces beamforming_lk_tpu/ops/pallas_tracker.py::
 // swarm_chain_pallas (kernel _swarm_kernel, block update
@@ -14,15 +14,26 @@
 // trackers into block k+1's target rows.  Both kernels call the same
 // __device__ block_update over the particle rows in shared memory, as the
 // TPU kernels share _make_swarm_block_update, so block k of a chunk equals
-// k+1 calls of the single-block kernel.  The plain PyTorch twins are
-// ops/cuda_tracker.py::swarm_chain_reference and swarm_chunk_reference.
+// k+1 calls of the single-block kernel.
+//
+// monopulse_chain_kernel replaces monopulse_chain_pallas (kernel
+// _chain_kernel): n_sub chained sub-steps with a per-sub-step row mask and
+// no iteration boundary (the unfused tracker and MISO steps run those in
+// PyTorch).  Its sub-step is block_update's: both call the __device__
+// monopulse_substep on a list of active rows.  The plain PyTorch twins are
+// ops/cuda_tracker.py::swarm_chain_reference, swarm_chunk_reference and
+// monopulse_chain_reference.
 //
 // What bounds them on an H100: each runs as ONE thread block on one SM, and
 // each sub-step's probe directions depend on the previous sub-step's
 // powers, so they are latency-bound by that chain, not by bytes or FLOPs (a
 // block's window is 37 KB at 64 mics in bf16, 163 KB at 256 mics).  The
 // chunk kernel runs K times the single-block chain back to back on that SM,
-// so it saves host launches and operand prep, not device time.
+// so it saves host launches and operand prep, not device time.  The
+// monopulse chain is one iteration's sub-steps of the same chain (the
+// default profile launches it 10 times a block, plus once for the MISO
+// step); at 64 mics the PyTorch boundary ops around it, not its device
+// time, bound that profile.
 //
 // Why it gathers: the TPU kernel multiplies a dense one-hot stencil
 // [4P, span*C] with an s-major window because Mosaic has no gathers.  Here
@@ -70,6 +81,9 @@ enum Row {
   FAM_T, FAM_S, FAM_M, TGT_TH, TGT_PH, TGT_VA, NROWS
 };
 constexpr int kStateRows = 8;
+// The monopulse chain's operand rows: the six particle fields, rate, spread.
+constexpr int kChainState = 6;
+constexpr int kChainRows = 8;
 
 // Launch operands.  Per-block operands are stacked on a leading block axis
 // of n_blocks (1 for the single-block kernel).
@@ -77,11 +91,12 @@ struct Params {
   const float* xyz;         // [4, C]
   const void* win_bp;       // [K, C, span+T-2] f32 or bf16
   const float* win_raw;     // [K, C, span+T]
-  const float* rows_in;     // [NROWS, P] rows entering block 0
+  const float* rows_in;     // [NROWS, P] rows entering block 0 (chain: [8, P])
   const float* jumps;       // [K, 2, n_iter, P]
   const float* resets;      // [K, 3, P] (flag, theta, phi); chunk kernel only
+  const float* active;      // [n_sub, P]; monopulse chain only
   const float* references;  // [K]
-  float* out_rows;          // [K, kStateRows, P]
+  float* out_rows;          // [K, kStateRows, P] (chain: [6, P])
   float* out_mean;          // [K]
   float* out_beam;          // [K, T]
   long long block_index0;   // global index of block 0
@@ -446,6 +461,84 @@ __device__ Smem carve(const Params& p, const Layout& L, unsigned char* smem,
   return s;
 }
 
+// The probe window the sub-steps read: staged in shared memory when the
+// layout has room for it, else read in place.  The caller's next barrier
+// publishes the staged copy.
+template <typename WT>
+__device__ const WT* stage_window(const Params& p, const void* win_bp,
+                                  const Smem& s) {
+  const WT* win = static_cast<const WT*>(win_bp);
+  if (p.win_smem) {
+    WT* s_win = static_cast<WT*>(s.win);
+    const size_t n = (size_t)p.C * (p.span + p.T - 2);
+    for (size_t i = threadIdx.x; i < n; i += kThreads) s_win[i] = win[i];
+    win = s_win;
+  }
+  return win;
+}
+
+// One 4-probe monopulse sub-step of the rows listed in s.list (count in
+// s.list[0], flags in s.act): one warp per probe beam gathered from the
+// window, then the discriminants and the theta-then-phi step per row.
+// Rows not in the list keep their values.  Called by every thread after the
+// barrier that publishes the list; ends with a barrier.
+template <typename WT>
+__device__ void monopulse_substep(const Params& p, const WT* win,
+                                  const Smem& s) {
+  const int C = p.C, P = p.P, T = p.T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldw = p.span + T - 2;
+  float* rows = s.rows;
+  float* th = rows + TH * P;
+  float* ph = rows + PH * P;
+  float* gt = rows + GT * P;
+  float* gp = rows + GP * P;
+  float* rad = rows + RAD * P;
+  float* err = rows + ERR * P;
+  const float* rate = rows + RATE * P;
+  const float* spread = rows + SPREAD * P;
+
+  const int n_probe = 4 * s.list[0];
+  for (int q = warp; q < n_probe; q += kWarps) {
+    const int r = s.list[1 + (q >> 2)], pb = q & 3;
+    float ux, uy, uz;
+    probe_dir(p, th[r], ph[r], spread[r], pb, &ux, &uy, &uz);
+    warp_stencil<WT>(p, ux, uy, uz, true, s.sw, s.ssh, lane);
+    const float pw =
+        warp_probe_power(win, ldw, C, p.taps, T - 2, s.sw, s.ssh, lane);
+    if (lane == 0) s.pow4[r * 4 + pb] = pw * p.inv_div;
+    __syncwarp();  // the scratch is rewritten by the next probe
+  }
+  __syncthreads();
+  for (int r = tid; r < P; r += kThreads) {
+    if (!s.act[r]) continue;
+    const float q1 = s.pow4[r * 4], q2 = s.pow4[r * 4 + 1];
+    const float q3 = s.pow4[r * 4 + 2], q4 = s.pow4[r * 4 + 3];
+    const float total = fmaxf(q1 + q2 + q3 + q4, 1e-30f);
+    float g_t, g_p;
+    if (p.quadrant) {
+      g_t = ((q1 + q2) - (q3 + q4)) / total;
+      g_p = ((q1 + q4) - (q2 + q3)) / total;
+    } else {
+      g_t = (q1 - q3) / fmaxf(fmaxf(q1, q3), 1e-30f);
+      g_p = (q2 - q4) / fmaxf(fmaxf(q2, q4), 1e-30f);
+    }
+    const float theta = th[r], sp = spread[r], k = rate[r];
+    const float adj = theta + sp > kPiHalfF ? theta - sp / 2.0f : theta;
+    float new_t = adj + k * g_t;
+    float new_p = ph[r] + (k * g_p) / sinf(1e-9f + new_t);
+    new_t = fminf(fmaxf(new_t, 0.0f), p.theta_limit);
+    new_p = new_p - floorf(new_p / kTwoPiF) * kTwoPiF;
+    th[r] = new_t;
+    ph[r] = new_p;
+    gt[r] = g_t;
+    gp[r] = g_p;
+    rad[r] = total * 0.25f;
+    err[r] = fabsf(g_t) + fabsf(g_p);
+  }
+  __syncthreads();
+}
+
 // One block's whole update over the particle rows in shared memory (the
 // counterpart of _make_swarm_block_update): stage the block's window, run
 // the iterations and the publish prune, write the block's state, mean and
@@ -455,28 +548,15 @@ template <typename WT>
 __device__ void block_update(const Params& p, const Block& b, const Smem& s) {
   const int C = p.C, P = p.P, T = p.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldw = p.span + T - 2;
   float* rows = s.rows;
 
-  const WT* win = static_cast<const WT*>(b.win_bp);
-  if (p.win_smem) {
-    WT* s_win = static_cast<WT*>(s.win);
-    const size_t n = (size_t)C * ldw;
-    for (size_t i = tid; i < n; i += kThreads) s_win[i] = win[i];
-    win = s_win;
-  }
+  const WT* win = stage_window<WT>(p, b.win_bp, s);
   if (tid == 0) s.misc[0] = 0.0f;
   __syncthreads();
 
   float* th = rows + TH * P;
   float* ph = rows + PH * P;
-  float* gt = rows + GT * P;
-  float* gp = rows + GP * P;
-  float* rad = rows + RAD * P;
-  float* err = rows + ERR * P;
   const float* trk = rows + TRK * P;
-  const float* rate = rows + RATE * P;
-  const float* spread = rows + SPREAD * P;
   const float* ft = rows + FAM_T * P;
   const float* fs = rows + FAM_S * P;
   const float* fm = rows + FAM_M * P;
@@ -498,45 +578,7 @@ __device__ void block_update(const Params& p, const Block& b, const Smem& s) {
         s.list[0] = n;
       }
       __syncthreads();
-      const int n_probe = 4 * s.list[0];
-      for (int q = warp; q < n_probe; q += kWarps) {
-        const int r = s.list[1 + (q >> 2)], pb = q & 3;
-        float ux, uy, uz;
-        probe_dir(p, th[r], ph[r], spread[r], pb, &ux, &uy, &uz);
-        warp_stencil<WT>(p, ux, uy, uz, true, s.sw, s.ssh, lane);
-        const float pw =
-            warp_probe_power(win, ldw, C, p.taps, T - 2, s.sw, s.ssh, lane);
-        if (lane == 0) s.pow4[r * 4 + pb] = pw * p.inv_div;
-        __syncwarp();  // the scratch is rewritten by the next probe
-      }
-      __syncthreads();
-      for (int r = tid; r < P; r += kThreads) {
-        if (!s.act[r]) continue;
-        const float q1 = s.pow4[r * 4], q2 = s.pow4[r * 4 + 1];
-        const float q3 = s.pow4[r * 4 + 2], q4 = s.pow4[r * 4 + 3];
-        const float total = fmaxf(q1 + q2 + q3 + q4, 1e-30f);
-        float g_t, g_p;
-        if (p.quadrant) {
-          g_t = ((q1 + q2) - (q3 + q4)) / total;
-          g_p = ((q1 + q4) - (q2 + q3)) / total;
-        } else {
-          g_t = (q1 - q3) / fmaxf(fmaxf(q1, q3), 1e-30f);
-          g_p = (q2 - q4) / fmaxf(fmaxf(q2, q4), 1e-30f);
-        }
-        const float theta = th[r], sp = spread[r], k = rate[r];
-        const float adj = theta + sp > kPiHalfF ? theta - sp / 2.0f : theta;
-        float new_t = adj + k * g_t;
-        float new_p = ph[r] + (k * g_p) / sinf(1e-9f + new_t);
-        new_t = fminf(fmaxf(new_t, 0.0f), p.theta_limit);
-        new_p = new_p - floorf(new_p / kTwoPiF) * kTwoPiF;
-        th[r] = new_t;
-        ph[r] = new_p;
-        gt[r] = g_t;
-        gp[r] = g_p;
-        rad[r] = total * 0.25f;
-        err[r] = fabsf(g_t) + fabsf(g_p);
-      }
-      __syncthreads();
+      monopulse_substep<WT>(p, win, s);
     }
     if (warp == 0) iteration_boundary(p, b, rows, s.flags, s.misc, it, lane);
     __syncthreads();
@@ -617,29 +659,63 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// n_sub chained sub-steps of the rows (monopulse_chain_pallas, kernel
+// _chain_kernel): rows_in [8, P] holds theta, phi, grad_theta, grad_phi,
+// radius, error, rate, spread; row r steps in sub-step j where
+// active[j, r] > 0 and keeps its values otherwise.  Writes the first six
+// rows after the chain to out_rows [6, P].
 template <typename WT>
-cudaError_t launch(const Params& p, bool chunk, size_t smem,
-                   cudaStream_t stream) {
-  const int bytes = (int)smem;
-  cudaError_t e;
-  if (chunk) {
-    e = cudaFuncSetAttribute(swarm_chunk_kernel<WT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    swarm_chunk_kernel<WT><<<1, kThreads, smem, stream>>>(p);
-  } else {
-    e = cudaFuncSetAttribute(swarm_chain_kernel<WT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    swarm_chain_kernel<WT><<<1, kThreads, smem, stream>>>(p);
+__global__ void __launch_bounds__(kThreads, 1)
+    monopulse_chain_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps,
+                               (int)sizeof(WT), p.win_smem != 0);
+  const Smem s = carve(p, L, smem, threadIdx.x >> 5);
+  const int P = p.P, tid = threadIdx.x;
+  for (int i = tid; i < kChainRows * P; i += kThreads) {
+    const int f = i / P;
+    s.rows[(f < kChainState ? f : RATE + f - kChainState) * P + i - f * P] =
+        p.rows_in[i];
   }
+  const WT* win = stage_window<WT>(p, p.win_bp, s);
+  for (int j = 0; j < p.n_sub; ++j) {
+    if (tid == 0) {
+      int n = 0;
+      for (int r = 0; r < P; ++r) {
+        const bool a = p.active[(size_t)j * P + r] > 0.0f;
+        s.act[r] = a;
+        if (a) s.list[1 + n++] = r;
+      }
+      s.list[0] = n;
+    }
+    __syncthreads();  // (and, at j == 0, the staged rows and window)
+    monopulse_substep<WT>(p, win, s);
+  }
+  for (int i = tid; i < kChainState * P; i += kThreads)
+    p.out_rows[i] = s.rows[i];
+}
+
+enum Kind { kSwarmChain, kSwarmChunk, kMonopulseChain };
+
+template <typename WT>
+cudaError_t launch(const Params& p, Kind kind, size_t smem,
+                   cudaStream_t stream) {
+  void (*kernel)(const Params) =
+      kind == kSwarmChain   ? &swarm_chain_kernel<WT>
+      : kind == kSwarmChunk ? &swarm_chunk_kernel<WT>
+                            : &monopulse_chain_kernel<WT>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<1, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-int launch_blocks(Params& p, int win_bf16, bool chunk, const float* host_consts,
+int launch_blocks(Params& p, int win_bf16, Kind kind, const float* host_consts,
                   void* stream) {
   if (p.taps < 1 || p.taps > kMaxTaps || (!p.fir && p.taps != 2) || p.C < 1 ||
-      p.P < 1 || p.T < 3 || p.n_trackers > p.P || p.n_blocks < 1)
+      p.P < 1 || p.T < 3 || p.n_trackers > p.P || p.n_blocks < 1 ||
+      (kind == kMonopulseChain && p.n_sub < 1))
     return (int)cudaErrorInvalidValue;
   memcpy(p.cos_b, host_consts, sizeof(p.cos_b));
   memcpy(p.sin_b, host_consts + 4, sizeof(p.sin_b));
@@ -650,8 +726,8 @@ int launch_blocks(Params& p, int win_bf16, bool chunk, const float* host_consts,
   if (!p.win_smem) L = make_layout(p.C, p.P, p.T, p.span, p.taps, elem, false);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, chunk, L.total, s)
-                        : launch<float>(p, chunk, L.total, s));
+  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, kind, L.total, s)
+                        : launch<float>(p, kind, L.total, s));
 }
 
 Params make_params(const float* xyz, const void* win_bp, const float* win_raw,
@@ -721,7 +797,7 @@ extern "C" int swarm_chain_launch(
                          out_rows, out_mean, out_beam, dims, scalars);
   p.n_blocks = 1;
   p.block_index0 = block_index;
-  return launch_blocks(p, win_bf16, false, host_consts, stream);
+  return launch_blocks(p, win_bf16, kSwarmChain, host_consts, stream);
 }
 
 // K blocks (swarm_chunk_pallas): the same operands stacked on a leading
@@ -738,5 +814,22 @@ extern "C" int swarm_chunk_launch(
   p.resets = resets;
   p.n_blocks = n_blocks;
   p.block_index0 = block_index0;
-  return launch_blocks(p, win_bf16, true, host_consts, stream);
+  return launch_blocks(p, win_bf16, kSwarmChunk, host_consts, stream);
+}
+
+// n_sub chained sub-steps (monopulse_chain_pallas): win_bp [C, span+T-2],
+// rows_in [8, P] (theta, phi, grad_theta, grad_phi, radius, error, rate,
+// spread), active [n_sub, P]; out_rows [6, P].  dims and scalars as above;
+// the fields the chain does not read (n_iter, refine, n_trackers,
+// cos(closeness), error_threshold, min_power_fraction) are ignored.
+extern "C" int monopulse_chain_launch(
+    const float* xyz, const void* win_bp, int win_bf16, const float* rows_in,
+    const float* active, float* out_rows, const int* dims,
+    const float* scalars, const float* host_consts, void* stream) {
+  Params p = make_params(xyz, win_bp, nullptr, rows_in, nullptr, nullptr,
+                         out_rows, nullptr, nullptr, dims, scalars);
+  p.active = active;
+  p.n_blocks = 1;
+  p.n_trackers = 0;
+  return launch_blocks(p, win_bf16, kMonopulseChain, host_consts, stream);
 }

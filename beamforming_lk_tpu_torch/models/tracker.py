@@ -1,16 +1,24 @@
-"""Gradient-ascent source tracker swarm, fused with the MISO listener
-(counterpart of ``beamforming_lk_tpu.models.tracker``, the kernel paths of
-``make_fused_step_impl`` and ``make_fused_chunk_impl``).
+"""Gradient-ascent source tracker swarm, alone or fused with the MISO
+listener (counterpart of ``beamforming_lk_tpu.models.tracker``:
+``make_swarm_step_impl``, ``make_fused_step_impl`` and
+``make_fused_chunk_impl``).
 
 16 seekers and 10 trackers step by 4-point monopulse (gradient_ascend.cpp);
-the MISO listener rides the same chain.  The whole per-block update is one
-call of :func:`beamforming_lk_tpu_torch.ops.cuda_tracker.swarm_chain`, and
-K blocks of it one call of ``swarm_chunk`` (the replay path); this module
-prepares their operands (reference power, bandpassed window, seeker reset,
-jump draws, packed rows) and unpacks their results.  Every decision
-that the JAX package takes on the device with a traced predicate but that
-depends only on counters (the seeker reset) is taken here on the host, so
-a block never waits for the device.
+in the fused step the MISO listener rides the same chain.  Two backends,
+as the JAX package's ``TrackerConfig.probe_kernel``:
+
+- ``"pallas"``: the whole per-block update is one call of
+  :func:`beamforming_lk_tpu_torch.ops.cuda_tracker.swarm_chain`, and K
+  blocks of it one call of ``swarm_chunk`` (the replay path);
+- ``"xla"``: the JAX package's iteration scan, with each iteration's
+  sub-step chain as one call of ``monopulse_chain`` and the iteration
+  boundary (merge, seeker jump, promote) and the publish prune in PyTorch.
+
+This module prepares the kernels' operands (reference power, bandpassed
+window, seeker reset, jump draws, packed rows) and unpacks their results.
+Every decision that the JAX package takes on the device with a traced
+predicate but that depends only on counters (the seeker reset) is taken
+here on the host, so a block never waits for the device.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 from beamforming_lk_tpu_torch.ops import delay as dl
+from beamforming_lk_tpu_torch.ops import geometry as gm
 
 
 class Particles(NamedTuple):
@@ -104,52 +114,82 @@ def swarm_init(cfg, generator, device=None) -> SwarmState:
     )
 
 
-class FusedSwarmStep(nn.Module):
-    """The fused tracker + MISO per-block update through the swarm-chain
-    kernel.  Holds the packed geometry and the per-row constants (rates,
-    spreads, family one-hots) as buffers.
+def probe_windows(window, dsp, span: int):
+    """(bandpassed compact probe window [..., C, span+T-2] in the probe
+    compute dtype, raw compact window [..., C, span+T] f32) of a DAS window
+    [..., C, T+S]: its last span+T samples (the probe span's shift base
+    moves by the same constant)."""
+    pw = window[..., dsp.shift_range - span:].contiguous()
+    win_bp = ctk.bandpass_window(pw)
+    if dsp.probe_compute == "bfloat16":
+        win_bp = win_bp.to(torch.bfloat16)
+    return win_bp, pw
 
-    ``forward(state, miso_particle, window, block_index, generator=None,
-    draws=None) -> (state, Targets, miso_particle, miso_beam[T])``.
-    ``draws = (reset_theta[Ns], reset_phi[Ns], jump_theta[I, Ns],
-    jump_phi[I, Ns])`` replaces the generator's draws (tests feed the JAX
-    package's own draws through it)."""
 
-    def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 probe_span=None, miso_refine_steps: int = 3, device=None):
+def _merge_trackers(trackers: Particles, tracking, start, closeness: float):
+    """Absorb pairwise-close trackers, oldest wins (gradient_ascend.cpp:
+    332-351): tracker m stops if a tracking tracker n lies within
+    ``closeness`` (``spherical_angle``, as the JAX package's XLA path) and
+    started earlier, or at the same block with a lower index."""
+    nt = tracking.shape[0]
+    ang = gm.spherical_angle(trackers.theta[:, None], trackers.phi[:, None],
+                             trackers.theta[None, :], trackers.phi[None, :])
+    idx = torch.arange(nt, device=tracking.device)
+    close = ((ang < closeness) & tracking[:, None] & tracking[None, :]
+             & (idx[:, None] != idx[None, :]))
+    older = (start[:, None] > start[None, :]) | (
+        (start[:, None] == start[None, :]) & (idx[:, None] > idx[None, :])
+    )
+    return tracking & ~(close & older).any(dim=1)
+
+
+class _SwarmRows(nn.Module):
+    """Operand prep shared by the swarm steps: the packed geometry and the
+    per-row constants of the row layout ``trackers | miso | seekers`` (the
+    listener row only with ``n_miso=1``; rates, spreads, family one-hots)
+    as buffers, the seeker reset and jump draws, the kernels' operands and
+    the unpacking of their rows."""
+
+    def __init__(self, cfg, dsp, array_cfg, points, channel_mask, probe_span,
+                 n_miso: int, refine: int, device):
         super().__init__()
-        if cfg.iterations * cfg.tracker_steps < miso_refine_steps:
-            raise ValueError(
-                f"fused step needs iterations*tracker_steps >= "
-                f"{miso_refine_steps}; got {cfg.iterations}*{cfg.tracker_steps}"
-            )
         self.cfg, self.dsp = cfg, dsp
         self.taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
         self.span = (
             dsp.shift_range if probe_span is None
             else min(probe_span, dsp.shift_range)
         )
-        self.refine = miso_refine_steps
+        self.n_miso, self.refine = n_miso, refine
         nt, ns = cfg.n_trackers, cfg.n_seekers
+        p = nt + n_miso + ns
         tracker_rate = cfg.tracker_step_gain * cfg.tracker_spread
-        # Rows: trackers | miso | seekers.
-        consts = np.zeros((5, nt + 1 + ns), np.float32)
-        consts[0] = [tracker_rate] * nt + [tracker_rate / 3.0] + [
+        consts = np.zeros((5, p), np.float32)
+        consts[0] = [tracker_rate] * nt + [tracker_rate / 3.0] * n_miso + [
             cfg.seeker_step_gain * cfg.seeker_spread] * ns   # miso.cpp:39-40
-        consts[1] = [cfg.tracker_spread] * (nt + 1) + [cfg.seeker_spread] * ns
+        consts[1] = [cfg.tracker_spread] * (nt + n_miso) + [cfg.seeker_spread] * ns
         consts[2, :nt] = 1.0
-        consts[3, nt + 1:] = 1.0
-        consts[4, nt] = 1.0
+        consts[3, nt + n_miso:] = 1.0
+        consts[4, nt:nt + n_miso] = 1.0
+        # The XLA chain's static activity per iteration and sub-step:
+        # seekers ride sub-step 0, the listener its refine budget (the
+        # trackers' activity, their tracking flags, is added per iteration).
+        act = np.zeros((cfg.iterations, cfg.tracker_steps, p), np.float32)
+        act[:, 0, nt + n_miso:] = 1.0
+        slots = np.arange(cfg.iterations * cfg.tracker_steps).reshape(
+            cfg.iterations, cfg.tracker_steps)
+        act[..., nt:nt + n_miso] = (slots < refine)[..., None]
         self.register_buffer("consts", torch.as_tensor(consts, device=device))
+        self.register_buffer("act_static", torch.as_tensor(act, device=device))
         self.register_buffer("xyz", ctk.pack_geometry(
             points, array_cfg.samples_per_meter, channel_mask, device=device
         ))
         self.register_buffer("zeros_tm", torch.zeros(
-            (2, cfg.iterations, nt + 1), dtype=torch.float32, device=device
+            (2, cfg.iterations, nt + n_miso), dtype=torch.float32, device=device
         ))
         self.register_buffer("zeros_sm", torch.zeros(
-            (ns + 1,), dtype=torch.float32, device=device
+            (p - nt,), dtype=torch.float32, device=device
         ))
+        self.register_buffer("false_sm", self.zeros_sm > 0.0)
 
     def _kernel_kw(self):
         cfg, dsp = self.cfg, self.dsp
@@ -164,6 +204,11 @@ class FusedSwarmStep(nn.Module):
             min_power_fraction=cfg.min_power_fraction,
         )
 
+    def _chain_kw(self):
+        kw = self._kernel_kw()
+        return {k: kw[k] for k in ("span", "taps", "theta_limit", "divisor",
+                                   "probe_layout", "interp", "fir_phases")}
+
     def _prep(self, window):
         """Kernel operands of a window [C, T+S], or of a stack [K, C, T+S]
         batched: the reference power (bandpass power of channel 0's block,
@@ -175,57 +220,13 @@ class FusedSwarmStep(nn.Module):
             window[..., 0, b0:b0 + t_len], use_bandpass=True,
             divisor=t_len - 2,
         )
-        pw = window[..., dsp.shift_range - self.span:].contiguous()
-        win_bp = ctk.bandpass_window(pw)
-        if dsp.probe_compute == "bfloat16":
-            win_bp = win_bp.to(torch.bfloat16)
-        return reference, win_bp, pw
+        return (reference,) + probe_windows(window, dsp, self.span)
 
-    def _rows(self, state: SwarmState, miso_particle: Particles, seekers):
-        parts = (state.trackers, miso_particle, seekers)
-        return torch.cat(
-            [f for i in range(6) for f in (g[i] for g in parts)]
-            + [state.tracking.to(torch.float32), self.zeros_sm,
-               state.start, self.zeros_sm, self.consts.reshape(-1),
-               state.target_theta, self.zeros_sm,
-               state.target_phi, self.zeros_sm,
-               state.target_valid.to(torch.float32), self.zeros_sm]
-        ).reshape(len(ctk.ROW_FIELDS), -1)
-
-    def _unpack(self, out, state: SwarmState, mean, n_blocks: int):
-        """Kernel state rows [..., 8, P] (a leading block axis or none) ->
-        (new state after the last block, Targets [..., nt], listener)."""
-        nt = self.cfg.n_trackers
-        fields = [out[..., i, :] for i in range(6)]
-        trackers = Particles(*(x[..., :nt] for x in fields))
-        tracking = out[..., 6, :nt] > 0.5          # post-prune
-        start = out[..., 7, :nt]
-        targets = Targets(
-            theta=trackers.theta, phi=trackers.phi, power=trackers.radius,
-            probability=1.0 / torch.clamp(trackers.error, min=1e-30),
-            start=start, valid=tracking,
-        )
-        last = (lambda x: x[-1]) if out.dim() == 3 else (lambda x: x)
-        last_trackers = Particles(*map(last, trackers))
-        new_state = SwarmState(
-            seekers=Particles(*(last(x)[nt + 1:] for x in fields)),
-            trackers=last_trackers, tracking=last(tracking),
-            start=last(start), jumped=state.jumped, mean=last(mean),
-            reset_count=state.reset_count + n_blocks,
-            target_theta=last_trackers.theta, target_phi=last_trackers.phi,
-            target_valid=last(tracking),
-        )
-        miso_p = Particles(*(last(x)[nt:nt + 1] for x in fields))
-        return new_state, targets, miso_p
-
-    def forward(self, state: SwarmState, miso_particle: Particles, window,
-                block_index: int, generator: Optional[torch.Generator] = None,
-                draws=None):
+    def _draw(self, state: SwarmState, device, generator, draws):
+        """The seekers after this block's reset (every
+        ``seeker_reset_interval`` blocks, host counter) and the jump table
+        [2, I, P] (zero on non-seeker rows)."""
         cfg = self.cfg
-        device = window.device
-        reference, win_bp, pw = self._prep(window)
-
-        # Seeker reset every seeker_reset_interval blocks (host counter).
         seekers = state.seekers
         reset = state.reset_count % cfg.seeker_reset_interval == 0
         if draws is None:
@@ -244,13 +245,238 @@ class FusedSwarmStep(nn.Module):
         jumps = torch.cat(
             [self.zeros_tm, torch.stack([jts, jps])], dim=2
         ).contiguous()
+        return seekers, jumps
 
-        out, mean, beam = ctk.swarm_chain(
-            self.xyz, win_bp, pw, self._rows(state, miso_particle, seekers),
-            jumps, reference, block_index=block_index, **self._kernel_kw(),
+    def _parts(self, state: SwarmState, miso_particle, seekers):
+        return ((state.trackers,) + ((miso_particle,) if self.n_miso else ())
+                + (seekers,))
+
+    def _rows(self, state: SwarmState, miso_particle, seekers):
+        """The swarm kernels' packed rows [16, P]."""
+        parts = self._parts(state, miso_particle, seekers)
+        return torch.cat(
+            [f for i in range(6) for f in (g[i] for g in parts)]
+            + [state.tracking.to(torch.float32), self.zeros_sm,
+               state.start, self.zeros_sm, self.consts.reshape(-1),
+               state.target_theta, self.zeros_sm,
+               state.target_phi, self.zeros_sm,
+               state.target_valid.to(torch.float32), self.zeros_sm]
+        ).reshape(len(ctk.ROW_FIELDS), -1)
+
+    def _unpack(self, out, tracking, start, state: SwarmState, mean,
+                n_blocks: int):
+        """Particle rows [..., 6+, P] (a leading block axis or none), the
+        post-prune tracking flags and start stamps [..., nt] -> (new state
+        after the last block, Targets [..., nt], listener or None)."""
+        nt = self.cfg.n_trackers
+        fields = [out[..., i, :] for i in range(6)]
+        trackers = Particles(*(x[..., :nt] for x in fields))
+        targets = Targets(
+            theta=trackers.theta, phi=trackers.phi, power=trackers.radius,
+            probability=1.0 / torch.clamp(trackers.error, min=1e-30),
+            start=start, valid=tracking,
         )
-        new_state, targets, miso_p = self._unpack(out, state, mean, 1)
+        last = (lambda x: x[-1]) if out.dim() == 3 else (lambda x: x)
+        last_trackers = Particles(*map(last, trackers))
+        new_state = SwarmState(
+            seekers=Particles(*(last(x)[nt + self.n_miso:] for x in fields)),
+            trackers=last_trackers, tracking=last(tracking),
+            start=last(start), jumped=state.jumped, mean=last(mean),
+            reset_count=state.reset_count + n_blocks,
+            target_theta=last_trackers.theta, target_phi=last_trackers.phi,
+            target_valid=last(tracking),
+        )
+        miso_p = (Particles(*(last(x)[nt:nt + 1] for x in fields))
+                  if self.n_miso else None)
+        return new_state, targets, miso_p
+
+    def _update(self, state: SwarmState, miso_particle, window,
+                block_index: int, generator, draws):
+        """One block's swarm update through the configured backend ->
+        (new state, Targets, listener or None, the swarm-chain kernel's
+        MISO beam or None, raw compact window)."""
+        reference, win_bp, pw = self._prep(window)
+        seekers, jumps = self._draw(state, window.device, generator, draws)
+        beam = None
+        if self.cfg.probe_kernel == "pallas":
+            out, mean, beam = ctk.swarm_chain(
+                self.xyz, win_bp, pw, self._rows(state, miso_particle, seekers),
+                jumps, reference, block_index=block_index, **self._kernel_kw(),
+            )
+            nt = self.cfg.n_trackers
+            tracking, start = out[6, :nt] > 0.5, out[7, :nt]   # post-prune
+        else:
+            out, tracking, start, mean = self._chain(
+                state, miso_particle, seekers, win_bp, reference, jumps,
+                block_index,
+            )
+        new_state, targets, miso_p = self._unpack(out, tracking, start, state,
+                                                  mean, 1)
+        return new_state, targets, miso_p, beam, pw
+
+    def _chain(self, state: SwarmState, miso_particle, seekers, win_bp,
+               reference, jumps, block_index: int):
+        """``probe_kernel="xla"``: the JAX package's XLA iteration scan
+        (models/tracker.py:491-580, and 846-950 for the fused step) with
+        each iteration's sub-step chain as ONE launch of the monopulse-chain
+        kernel on all rows: trackers active in every sub-step while
+        tracking, seekers in sub-step 0, the listener within its refine
+        budget.  The JAX package steps the seekers after the trackers'
+        chain and their merge; riding sub-step 0 instead gives the same
+        numbers, because each row's sub-step reads only its own state and
+        the window, and the merge reads no seeker.  Returns (rows [6, P],
+        post-prune tracking [nt], start [nt], mean [])."""
+        cfg = self.cfg
+        nt = cfg.n_trackers
+        parts = self._parts(state, miso_particle, seekers)
+        rows = torch.stack([torch.cat([g[i] for g in parts]) for i in range(6)])
+        dyn = self.consts[:2]
+        is_s = self.consts[3] > 0.5
+        tracking, start, mean = state.tracking, state.start, state.mean
+        for it in range(cfg.iterations):
+            active = self.act_static[it] + torch.cat(
+                [tracking.to(torch.float32), self.zeros_sm])
+            rows = ctk.monopulse_chain(
+                self.xyz, win_bp, torch.cat([rows, dyn]), active,
+                **self._chain_kw(),
+            )
+            th, ph, gt, gp, rad, err = rows.unbind(0)
+            n_tracking = tracking.sum()
+
+            # Merge close trackers (oldest wins).
+            tracking = _merge_trackers(
+                Particles(th[:nt], ph[:nt], gt[:nt], gp[:nt], rad[:nt], err[:nt]),
+                tracking, start, cfg.tracker_closeness,
+            )
+
+            # Jump seekers near a previously published target
+            # (gradient_ascend.cpp:360-371).
+            ang = gm.spherical_angle(th[:, None], ph[:, None],
+                                     state.target_theta[None, :],
+                                     state.target_phi[None, :])
+            too_close = ((ang < cfg.tracker_closeness)
+                         & state.target_valid[None, :]).any(dim=1) & is_s
+            j_th, j_ph = gm.normalize_spherical(
+                th + jumps[0, it], ph + jumps[1, it], cfg.theta_limit)
+            th = torch.where(too_close, j_th, th)
+            ph = torch.where(too_close, j_ph, ph)
+
+            # Promote the best converged seeker (first index of the max) to
+            # every free tracker (gradient_ascend.cpp:374-393).
+            valid = is_s & ~too_close
+            converged = valid & (err < cfg.error_threshold)
+            best = torch.argmax(torch.where(converged, rad, -math.inf))
+            better = (converged & (rad > 0.0)).any()
+            promote_t = better & (n_tracking < nt) & ~tracking
+            promote = torch.cat([promote_t, self.false_sm])
+            best = best.view(1)   # an index tensor: no host sync
+            th = torch.where(promote, th.index_select(0, best), th)
+            ph = torch.where(promote, ph.index_select(0, best), ph)
+            start = torch.where(promote_t, float(block_index), start)
+            tracking = tracking | promote_t
+
+            mean = (torch.where(valid, rad, 0.0).sum()
+                    / torch.clamp(valid.sum(), min=1))
+            rows = torch.stack([th, ph, gt, gp, rad, err])
+
+        # Publish: prune weak or diverged trackers, then the sidelobe gate
+        # (gradient_ascend.cpp:398-408).
+        t_rad = rows[4, :nt]
+        weak = (t_rad < mean) | (t_rad < reference) | (
+            rows[5, :nt] > cfg.error_threshold)
+        tracking = tracking & ~weak
+        if cfg.min_power_fraction > 0.0:
+            strongest = torch.where(tracking, t_rad, 0.0).max()
+            tracking = tracking & (t_rad >= cfg.min_power_fraction * strongest)
+        return rows, tracking, start, mean
+
+
+class SwarmStep(_SwarmRows):
+    """The unfused per-block swarm update (the JAX package's
+    ``make_swarm_step_impl``): rows ``trackers | seekers``, through one
+    swarm-chain launch (``probe_kernel="pallas"``; no listener row, so the
+    kernel's beam is dropped) or one monopulse-chain launch per iteration
+    (``"xla"``).
+
+    ``forward(state, window, block_index, generator=None, draws=None) ->
+    (state, Targets)``; ``draws`` as :class:`FusedSwarmStep`'s."""
+
+    def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
+                 probe_span=None, device=None):
+        super().__init__(cfg, dsp, array_cfg, points, channel_mask,
+                         probe_span, 0, 0, device)
+
+    def forward(self, state: SwarmState, window, block_index: int,
+                generator: Optional[torch.Generator] = None, draws=None):
+        new_state, targets, _, _, _ = self._update(
+            state, None, window, block_index, generator, draws)
+        return new_state, targets
+
+
+class FusedSwarmStep(_SwarmRows):
+    """The fused tracker + MISO per-block update: rows ``trackers | miso |
+    seekers`` through one swarm-chain launch (``probe_kernel="pallas"``,
+    the MISO beam from the kernel) or one monopulse-chain launch per
+    iteration (``"xla"``, the MISO beam from the f32 stencil in PyTorch).
+
+    ``forward(state, miso_particle, window, block_index, generator=None,
+    draws=None) -> (state, Targets, miso_particle, miso_beam[T])``.
+    ``draws = (reset_theta[Ns], reset_phi[Ns], jump_theta[I, Ns],
+    jump_phi[I, Ns])`` replaces the generator's draws (tests feed the JAX
+    package's own draws through it)."""
+
+    def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
+                 probe_span=None, miso_refine_steps: int = 3, device=None):
+        if cfg.iterations * cfg.tracker_steps < miso_refine_steps:
+            raise ValueError(
+                f"fused step needs iterations*tracker_steps >= "
+                f"{miso_refine_steps}; got {cfg.iterations}*{cfg.tracker_steps}"
+            )
+        super().__init__(cfg, dsp, array_cfg, points, channel_mask,
+                         probe_span, 1, miso_refine_steps, device)
+        self.beam = MisoBeam(dsp, array_cfg, points, channel_mask, self.span,
+                             device)
+
+    def forward(self, state: SwarmState, miso_particle: Particles, window,
+                block_index: int, generator: Optional[torch.Generator] = None,
+                draws=None):
+        new_state, targets, miso_p, beam, pw = self._update(
+            state, miso_particle, window, block_index, generator, draws)
+        if beam is None:
+            beam = self.beam(miso_p, pw)
         return new_state, targets, miso_p, beam
+
+
+class MisoBeam(nn.Module):
+    """The f32 MISO audio beam at a listener direction (miso.cpp:41-55):
+    steering delays, the dense stencil over the probe span times the
+    channel mask, contracted with the unfolded raw compact window in plain
+    PyTorch (the JAX package runs this product outside any kernel too)."""
+
+    def __init__(self, dsp, array_cfg, points, channel_mask, span: int,
+                 device=None):
+        super().__init__()
+        self.dsp, self.span = dsp, span
+        self.spm = array_cfg.samples_per_meter
+        self.register_buffer("points", torch.as_tensor(
+            np.asarray(points, np.float32), device=device))
+        self.register_buffer("mask", None if channel_mask is None else
+                             torch.as_tensor(np.asarray(channel_mask, np.float32),
+                                             device=device))
+        self.register_buffer("bank", None if dsp.interp == "linear" else
+                             torch.as_tensor(dl.fractional_delay_fir_bank(
+                                 dsp.fir_phases, dsp.fir_taps), device=device))
+
+    def forward(self, particle: Particles, pw):
+        """Beam [T] at ``particle``'s direction from the raw compact window
+        ``pw`` [C, span+T]."""
+        delays = ant.steering_delays(self.points, particle.theta, particle.phi,
+                                     self.spm)                      # [1, C]
+        w = dl.das_weights(delays, self.span, self.dsp.interp, self.bank)
+        if self.mask is not None:
+            w = w * self.mask[:, None]
+        unf = dl.unfold_window(pw, self.span, pw.shape[-1] - self.span)
+        return dl.das_beam_unfolded(unf, w)[0]
 
 
 class FusedChunkStep(FusedSwarmStep):
@@ -319,7 +545,8 @@ class FusedChunkStep(FusedSwarmStep):
             jumps, resets, references, block_index0=block_index0,
             **self._kernel_kw(),
         )
-        new_state, targets, miso_p = self._unpack(out, state, mean, kb)
+        new_state, targets, miso_p = self._unpack(
+            out, out[:, 6, :nt] > 0.5, out[:, 7, :nt], state, mean, kb)
         return new_state, targets, miso_p, beams
 
 
@@ -328,21 +555,27 @@ def _on(draw, device):
     return torch.as_tensor(np.array(draw, np.float32), device=device)
 
 
-def _require_kernel_path(cfg):
-    if cfg.probe_kernel != "pallas":
-        raise NotImplementedError(
-            f"probe_kernel={cfg.probe_kernel!r}: the port carries only the "
-            "swarm-chain kernel path (probe_kernel='pallas'); the XLA "
-            "monopulse chain is not ported"
-        )
+def _require_probe_kernel(cfg, allowed):
+    if cfg.probe_kernel not in allowed:
+        raise ValueError(f"probe_kernel={cfg.probe_kernel!r}: expected one "
+                         f"of {allowed}")
+
+
+def make_swarm_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
+                         probe_span=None, device=None) -> SwarmStep:
+    """The unfused swarm per-block update (the JAX package's function of
+    the same name)."""
+    _require_probe_kernel(cfg, ("pallas", "xla"))
+    return SwarmStep(cfg, dsp, array_cfg, points, channel_mask, probe_span,
+                     device)
 
 
 def make_fused_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                          probe_span=None, miso_refine_steps: int = 3,
                          device=None) -> FusedSwarmStep:
-    """The fused swarm + MISO per-block update (the JAX package's kernel
-    path of the same name); raises ``NotImplementedError`` outside it."""
-    _require_kernel_path(cfg)
+    """The fused swarm + MISO per-block update (the JAX package's function
+    of the same name)."""
+    _require_probe_kernel(cfg, ("pallas", "xla"))
     return FusedSwarmStep(
         cfg, dsp, array_cfg, points, channel_mask, probe_span,
         miso_refine_steps, device,
@@ -354,9 +587,9 @@ def make_fused_chunk_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                           device=None) -> FusedChunkStep:
     """K blocks of the fused update per launch of the chunk kernel (the JAX
     package's ``make_fused_chunk_impl``; K is the leading axis of the
-    windows it is given); raises ``NotImplementedError`` outside the kernel
-    path."""
-    _require_kernel_path(cfg)
+    windows it is given).  Like the JAX package's, it needs the kernel
+    backend, ``probe_kernel="pallas"``."""
+    _require_probe_kernel(cfg, ("pallas",))
     return FusedChunkStep(
         cfg, dsp, array_cfg, points, channel_mask, probe_span,
         miso_refine_steps, device,

@@ -5,8 +5,11 @@ Counterparts of ``beamforming_lk_tpu.ops.pallas_tracker.swarm_chain_pallas``
 sub-steps + merge + seeker jump + promote], then the publish prune and the
 MISO audio beam at the refined listener direction) and ``swarm_chunk_pallas``
 (K consecutive blocks of that update in one launch, with the seeker resets
-of a reset table and the published targets carried block to block).  The
-CUDA source of both is ``beamforming_lk_tpu_torch/csrc/swarm_chain.cu``.
+of a reset table and the published targets carried block to block), and
+of ``monopulse_chain_pallas`` (``n_sub`` chained sub-steps with a per-sub-step
+row mask and no boundary: the unfused tracker and MISO steps run one launch
+per iteration).  The CUDA source of all three is
+``beamforming_lk_tpu_torch/csrc/swarm_chain.cu``.
 
 Operand layout of one block (shared by the kernels and the twins; the
 chunk forms stack the per-block operands on a leading axis of K):
@@ -28,9 +31,9 @@ window, ``beam[t] = sum_c sum_j w_j(r,q,c) * bp[c, shift(r,q,c) + j + t]``:
 the same numbers as the TPU kernel's dense one-hot stencil against its
 s-major window (row ``s*C + c`` of which is ``bp[c, s + t]``).
 
-:func:`swarm_chain` and :func:`swarm_chunk` dispatch on the device of their
-tensors: CPU tensors take the twin, CUDA tensors launch the kernel (or the
-call raises), any other device raises.
+:func:`swarm_chain`, :func:`swarm_chunk` and :func:`monopulse_chain`
+dispatch on the device of their tensors: CPU tensors take the twin, CUDA
+tensors launch the kernel (or the call raises), any other device raises.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ ROW_FIELDS = (
     "is_miso", "target_theta", "target_phi", "target_valid",
 )
 STATE_ROWS = 8
+#: Particle fields the monopulse chain updates (theta .. error).
+CHAIN_STATE = 6
 
 _QUADRANT_DEG = (45.0, 315.0, 225.0, 135.0)
 _NEARBY_DEG = (0.0, 90.0, 180.0, 270.0)
@@ -181,6 +186,64 @@ def _gather_beams(win, shift, w, n_out):
     return beam
 
 
+def _substep(active, state, rate, spread, xyz, window_bp, k, *, span, taps,
+             interp, fir_phases, inv_div, quadrant, theta_limit):
+    """One 4-probe monopulse sub-step of every row, in the kernels' f32
+    arithmetic (probe weights rounded to the window's dtype before the
+    product, as the TPU kernels' ``w.astype(win.dtype)``), with inactive
+    rows masked back: ``state`` is (theta, phi, grad_theta, grad_phi,
+    radius, error), each [P]; returns the new state."""
+    theta, phi, gt, gp, rad, err = state
+    p = theta.shape[0]
+    ux, uy, uz = _probe_dirs(theta, phi, spread, k)              # [4, P]
+    shift, w = _stencil(
+        ux.reshape(-1), uy.reshape(-1), uz.reshape(-1), xyz, span, taps,
+        interp, fir_phases, k["blackman"],
+    )
+    w = w.to(window_bp.dtype).to(torch.float32)
+    beam = _gather_beams(window_bp, shift, w, window_bp.shape[1] - span)
+    q1, q2, q3, q4 = ((beam * beam).sum(dim=1) * inv_div).reshape(4, p)
+    total = torch.clamp(q1 + q2 + q3 + q4, min=1e-30)
+    if quadrant:
+        g_t = ((q1 + q2) - (q3 + q4)) / total
+        g_p = ((q1 + q4) - (q2 + q3)) / total
+    else:
+        g_t = (q1 - q3) / torch.clamp(torch.maximum(q1, q3), min=1e-30)
+        g_p = (q2 - q4) / torch.clamp(torch.maximum(q2, q4), min=1e-30)
+    e = torch.abs(g_t) + torch.abs(g_p)
+    r = total * 0.25
+    near = theta + spread > PI_HALF
+    adj = torch.where(near, theta - spread / 2.0, theta)
+    new_t = adj + rate * g_t
+    new_p = phi + (rate * g_p) / torch.sin(_EPS + new_t)
+    new_t = torch.clamp(new_t, 0.0, theta_limit)
+    new_p = new_p - torch.floor(new_p / _TWO_PI) * _TWO_PI
+    sel = lambda a, b: torch.where(active, a, b)  # noqa: E731
+    return (sel(new_t, theta), sel(new_p, phi), sel(g_t, gt),
+            sel(g_p, gp), sel(r, rad), sel(e, err))
+
+
+def monopulse_chain_reference(
+    xyz, window_bp, rows, active, *, span, taps=dl.LINEAR_TAPS, theta_limit,
+    divisor, probe_layout="quadrant", interp="linear", fir_phases=101,
+):
+    """Plain PyTorch twin of the monopulse-chain kernel: ``active.shape[0]``
+    chained sub-steps of :func:`_substep` over ``rows`` [8, P] (theta, phi,
+    grad_theta, grad_phi, radius, error, rate, spread), row r stepping in
+    sub-step j where ``active[j, r] > 0``.  Returns the six state rows
+    [6, P] after the chain."""
+    k = _consts(probe_layout, taps, theta_limit)
+    state = tuple(rows[:CHAIN_STATE].unbind(0))
+    for act in active:
+        state = _substep(
+            act > 0.0, state, rows[6], rows[7], xyz, window_bp, k, span=span,
+            taps=taps, interp=interp, fir_phases=fir_phases,
+            inv_div=1.0 / float(divisor),
+            quadrant=probe_layout == "quadrant", theta_limit=theta_limit,
+        )
+    return torch.stack(state)
+
+
 def swarm_chain_reference(
     xyz, window_bp, window_raw, rows, jumps, reference, *,
     block_index, n_iter, n_sub, refine, n_trackers, span,
@@ -189,10 +252,9 @@ def swarm_chain_reference(
     min_power_fraction=0.0,
 ):
     """Plain PyTorch twin of the swarm-chain kernel, same operands and same
-    f32 arithmetic (probe weights rounded to the window's dtype before the
-    product, as the TPU kernel's ``w.astype(win.dtype)``).  Every row is
-    computed and inactive rows are masked back, which gives the same
-    values as the kernel's active-rows-only schedule.
+    f32 arithmetic (:func:`_substep`).  Every row is computed and inactive
+    rows are masked back, which gives the same values as the kernel's
+    active-rows-only schedule.
 
     Returns ``(state [8, P], mean [], beam [T])``: the updated first
     :data:`STATE_ROWS` rows (tracking post-prune), the mean valid-seeker
@@ -200,7 +262,6 @@ def swarm_chain_reference(
     k = _consts(probe_layout, taps, theta_limit)
     p = rows.shape[1]
     t_len = window_raw.shape[1] - span
-    inv_div = 1.0 / float(divisor)
     cos_cl = float(np.cos(closeness))
     theta, phi, gt, gp, rad, err, tracking, start = rows[:STATE_ROWS].unbind(0)
     rate, spread = rows[8], rows[9]
@@ -208,36 +269,10 @@ def swarm_chain_reference(
     tgt_th, tgt_ph, tgt_va = rows[13], rows[14], rows[15]
     row_idx = torch.arange(p, device=rows.device)
     nt = n_trackers
-    quadrant = probe_layout == "quadrant"
     mean = torch.zeros((), dtype=torch.float32, device=rows.device)
-
-    def substep(active, theta, phi, gt, gp, rad, err):
-        ux, uy, uz = _probe_dirs(theta, phi, spread, k)          # [4, P]
-        shift, w = _stencil(
-            ux.reshape(-1), uy.reshape(-1), uz.reshape(-1), xyz, span, taps,
-            interp, fir_phases, k["blackman"],
-        )
-        w = w.to(window_bp.dtype).to(torch.float32)
-        beam = _gather_beams(window_bp, shift, w, t_len - 2)     # [4P, T-2]
-        q1, q2, q3, q4 = ((beam * beam).sum(dim=1) * inv_div).reshape(4, p)
-        total = torch.clamp(q1 + q2 + q3 + q4, min=1e-30)
-        if quadrant:
-            g_t = ((q1 + q2) - (q3 + q4)) / total
-            g_p = ((q1 + q4) - (q2 + q3)) / total
-        else:
-            g_t = (q1 - q3) / torch.clamp(torch.maximum(q1, q3), min=1e-30)
-            g_p = (q2 - q4) / torch.clamp(torch.maximum(q2, q4), min=1e-30)
-        e = torch.abs(g_t) + torch.abs(g_p)
-        r = total * 0.25
-        near = theta + spread > PI_HALF
-        adj = torch.where(near, theta - spread / 2.0, theta)
-        new_t = adj + rate * g_t
-        new_p = phi + (rate * g_p) / torch.sin(_EPS + new_t)
-        new_t = torch.clamp(new_t, 0.0, theta_limit)
-        new_p = new_p - torch.floor(new_p / _TWO_PI) * _TWO_PI
-        sel = lambda a, b: torch.where(active, a, b)  # noqa: E731
-        return (sel(new_t, theta), sel(new_p, phi), sel(g_t, gt),
-                sel(g_p, gp), sel(r, rad), sel(e, err))
+    sub_kw = dict(span=span, taps=taps, interp=interp, fir_phases=fir_phases,
+                  inv_div=1.0 / float(divisor),
+                  quadrant=probe_layout == "quadrant", theta_limit=theta_limit)
 
     def pick(mask, v):
         return torch.where(mask, v, torch.zeros_like(v)).sum()
@@ -248,8 +283,9 @@ def swarm_chain_reference(
             active = (is_tracker & trk_b) | (is_seeker & (j == 0))
             if it * n_sub + j < refine:
                 active = active | is_miso
-            theta, phi, gt, gp, rad, err = substep(
-                active, theta, phi, gt, gp, rad, err
+            theta, phi, gt, gp, rad, err = _substep(
+                active, (theta, phi, gt, gp, rad, err), rate, spread, xyz,
+                window_bp, k, **sub_kw,
             )
         n_tracking = trk_b.sum().to(torch.float32)
 
@@ -384,8 +420,10 @@ def _library():
     lib.swarm_chunk_launch.argtypes = (
         [ptr, ptr, i32] + [ptr] * 8 + [i32, i64] + [ptr] * 4
     )
+    lib.monopulse_chain_launch.argtypes = [ptr, ptr, i32] + [ptr] * 7
     lib.swarm_chain_launch.restype = i32
     lib.swarm_chunk_launch.restype = i32
+    lib.monopulse_chain_launch.restype = i32
     lib.swarm_chain_error_string.argtypes = [i32]
     lib.swarm_chain_error_string.restype = ctypes.c_char_p
     return lib
@@ -450,8 +488,40 @@ def _launch(entry, xyz, window_bp, window_raw, rows, jumps, reference,
     the current stream."""
     lead = tuple(window_bp.shape[:1]) if resets is not None else ()
     device = rows.device
-    c, p = xyz.shape[1], rows.shape[1]
+    p = rows.shape[1]
     t_len = window_raw.shape[-1] - span
+    state = torch.empty(lead + (STATE_ROWS, p), dtype=torch.float32, device=device)
+    mean = torch.empty(lead, dtype=torch.float32, device=device)
+    beam = torch.empty(lead + (t_len,), dtype=torch.float32, device=device)
+    lib = _library()
+    head = (xyz.data_ptr(), window_bp.data_ptr(),
+            int(window_bp.dtype == torch.bfloat16), window_raw.data_ptr(),
+            rows.data_ptr(), jumps.data_ptr())
+    outs = (state.data_ptr(), mean.data_ptr(), beam.data_ptr())
+    tail = _host_tail(
+        device, xyz.shape[1], p, t_len, span, taps, n_iter, n_sub, refine,
+        n_trackers, probe_layout, interp, fir_phases, theta_limit, divisor,
+        closeness, error_threshold, min_power_fraction,
+    )
+    if resets is not None:
+        err = lib.swarm_chunk_launch(
+            *head, resets.data_ptr(), reference.data_ptr(), *outs, lead[0],
+            int(block_index), *tail,
+        )
+    else:
+        err = lib.swarm_chain_launch(
+            *head, reference.data_ptr(), *outs, int(block_index), *tail,
+        )
+    _raise_on(entry, err)
+    return state, mean, beam
+
+
+def _host_tail(device, c, p, t_len, span, taps, n_iter, n_sub, refine,
+               n_trackers, probe_layout, interp, fir_phases, theta_limit,
+               divisor, closeness, error_threshold, min_power_fraction):
+    """The trailing launch arguments every entry point shares: the host
+    arrays ``dims``, ``scalars`` and ``host_consts`` (see the CUDA source)
+    and the current stream."""
     k = _consts(probe_layout, taps, theta_limit)
     dims = (ctypes.c_int * 12)(
         c, p, t_len, span, taps, n_iter, n_sub, refine, n_trackers,
@@ -466,32 +536,16 @@ def _launch(entry, xyz, window_bp, window_raw, rows, jumps, reference,
         *(k["cos_b"] + k["sin_b"] + k["blackman"]
           + [0.0] * (_MAX_TAPS - taps))
     )
-    state = torch.empty(lead + (STATE_ROWS, p), dtype=torch.float32, device=device)
-    mean = torch.empty(lead, dtype=torch.float32, device=device)
-    beam = torch.empty(lead + (t_len,), dtype=torch.float32, device=device)
-    lib = _library()
-    head = (xyz.data_ptr(), window_bp.data_ptr(),
-            int(window_bp.dtype == torch.bfloat16), window_raw.data_ptr(),
-            rows.data_ptr(), jumps.data_ptr())
-    outs = (state.data_ptr(), mean.data_ptr(), beam.data_ptr())
-    tail = (ctypes.addressof(dims), ctypes.addressof(scalars),
-            ctypes.addressof(host),
-            torch.cuda.current_stream(device).cuda_stream)
-    if resets is not None:
-        err = lib.swarm_chunk_launch(
-            *head, resets.data_ptr(), reference.data_ptr(), *outs, lead[0],
-            int(block_index), *tail,
-        )
-    else:
-        err = lib.swarm_chain_launch(
-            *head, reference.data_ptr(), *outs, int(block_index), *tail,
-        )
+    # ctypes keeps the arrays alive for the call through these references.
+    return (dims, scalars, host, torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(entry, err):
     if err:
         raise RuntimeError(
             f"{entry} kernel launch failed: "
-            + lib.swarm_chain_error_string(err).decode()
+            + _library().swarm_chain_error_string(err).decode()
         )
-    return state, mean, beam
 
 
 def swarm_chain(
@@ -563,3 +617,51 @@ def swarm_chunk(
 
 
 swarm_chunk.launches = 0
+
+
+def monopulse_chain(
+    xyz, window_bp, rows, active, *, span, taps=dl.LINEAR_TAPS, theta_limit,
+    divisor, probe_layout="quadrant", interp="linear", fir_phases=101,
+):
+    """``n_sub = active.shape[0]`` chained monopulse sub-steps in one launch
+    (the JAX package's ``monopulse_chain_pallas``): ``xyz`` [4, C],
+    ``window_bp`` [C, span+T-2] (f32 or bf16), ``rows`` [8, P] f32 (theta,
+    phi, grad_theta, grad_phi, radius, error, rate, spread), ``active``
+    [n_sub, P] f32 (row r steps in sub-step j where ``active[j, r] > 0``;
+    a row never active keeps its values).  Returns the six state rows
+    [6, P]; ``monopulse_chain.launches`` counts kernel launches."""
+    device = rows.device
+    c, p = xyz.shape[1], rows.shape[1]
+    n_sub = active.shape[0]
+    if taps > _MAX_TAPS or interp not in ("linear", "fir"):
+        raise ValueError(f"unsupported stencil: interp={interp} taps={taps}")
+    if window_bp.shape[-1] - span < 1 or n_sub < 1:
+        raise ValueError(f"window_bp has {window_bp.shape[-1]} columns for a "
+                         f"span of {span}; {n_sub} sub-steps")
+    f32 = (torch.float32,)
+    check_operand("xyz", xyz, device, f32, (4, c))
+    check_operand("window_bp", window_bp, device,
+                  (torch.float32, torch.bfloat16), (c, window_bp.shape[-1]))
+    check_operand("rows", rows, device, f32, (CHAIN_STATE + 2, p))
+    check_operand("active", active, device, f32, (n_sub, p))
+    kw = dict(span=span, taps=taps, theta_limit=theta_limit, divisor=divisor,
+              probe_layout=probe_layout, interp=interp, fir_phases=fir_phases)
+    if device.type == "cpu":
+        return monopulse_chain_reference(xyz, window_bp, rows, active, **kw)
+    require_cuda("monopulse_chain", device)
+    out = torch.empty((CHAIN_STATE, p), dtype=torch.float32, device=device)
+    t_len = window_bp.shape[-1] - span + 2
+    err = _library().monopulse_chain_launch(
+        xyz.data_ptr(), window_bp.data_ptr(),
+        int(window_bp.dtype == torch.bfloat16), rows.data_ptr(),
+        active.data_ptr(), out.data_ptr(),
+        *_host_tail(device, c, p, t_len, span, taps, 1, n_sub, 0, 0,
+                    probe_layout, interp, fir_phases, theta_limit, divisor,
+                    0.0, 0.0, 0.0),
+    )
+    _raise_on("monopulse_chain", err)
+    monopulse_chain.launches += 1
+    return out
+
+
+monopulse_chain.launches = 0

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's live and replay paths on one CUDA card and check them.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -27,7 +27,22 @@ Phases (any failed check raises, so the exit code is non-zero):
 9. the chunked heatmap at 256 mics through K3 (``power_path="pallas"``, as
    ``bench.py``'s chunked variant) against the fused path, and the
    heatmap-only replay on 96 blocks;
-10. one JSON line of kernel results, then the final status line.
+10. the DAS-beam kernel (K4) against its twin at the heatmap's shapes (a
+    64 x 64 grid, 64 and 256 mics, f32 and bf16, one window and a stack
+    of 8), and the monopulse-chain kernel (K0) against its twin (64 and
+    256 mics, f32 and bf16, 26 rows under a random 5-sub-step mask and the
+    listener's 1 row under 3 sub-steps), with times;
+11. a small end-to-end check of the default profile (``Config()``: dense
+    heatmap, 10 iterations on the XLA-chain backend, the unfused MISO):
+    6 blocks on the card and on the CPU, outputs compared;
+12. the default profile: ``AwpuPipeline(Config(), channels=64|256)`` on 96
+    plane-wave blocks through ``process_block``, locked on the source,
+    with 11 K0 launches (10 iterations and the MISO step) and 1 K4 launch
+    per block and the ms per block;
+13. the realtime profile's fallback to the dense heatmap (a gain mask, 64
+    mics), live (K1 per block, K4 per heatmap) and through
+    ``process_blocks`` (K2 and K4 once per 12 blocks);
+14. one JSON line of kernel results, then the final status line.
 """
 
 from __future__ import annotations
@@ -285,21 +300,30 @@ def _state_to(state, device):
     return move(state)
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper by its kernel's name."""
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    return {"swarm_chain": ctk.swarm_chain, "swarm_chunk": ctk.swarm_chunk,
+            "power_matmul": fd.power_matmul,
+            "monopulse_chain": ctk.monopulse_chain, "das_beam": cd.das_beam}
+
+
 def _reset_counts():
-    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
-    from beamforming_lk_tpu_torch.ops import fft_das as fd
-
-    ctk.swarm_chain.launches = ctk.swarm_chunk.launches = 0
-    fd.power_matmul.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def _counts() -> dict:
-    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
-    from beamforming_lk_tpu_torch.ops import fft_das as fd
-
-    return {"swarm_chain": ctk.swarm_chain.launches,
-            "swarm_chunk": ctk.swarm_chunk.launches,
-            "power_matmul": fd.power_matmul.launches}
+def _counts(**expected) -> dict:
+    """The launch counts; raises unless they equal ``expected`` (zero for a
+    kernel not named)."""
+    got = {name: fn.launches for name, fn in _wrappers().items()}
+    want = {name: expected.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+    return got
 
 
 def chunk_operands(channels: int, compute: str, device, seed: int = 0):
@@ -517,10 +541,7 @@ def run_slice(channels: int, device):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - h0) * 1e3 / (N_BLOCKS - warm)
     ms = e0.elapsed_time(e1) / (N_BLOCKS - warm)
-    counts = _counts()
-    if counts != {"swarm_chain": N_BLOCKS, "swarm_chunk": 0, "power_matmul": 0}:
-        raise AssertionError(f"{channels} mics live: launches {counts} for "
-                             f"{N_BLOCKS} blocks")
+    counts = _counts(swarm_chain=N_BLOCKS)
     lock = check_lock(f"{channels} mics live", cfg, pipe, out.miso_beam, last_map)
     print(f"live slice {channels:3d} mics: {counts['swarm_chain']} K1 launches / "
           f"{N_BLOCKS} blocks, {lock}; {ms:.4f} ms/block device, "
@@ -556,11 +577,7 @@ def run_replay(channels: int, device):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - h0) * 1e3 / (N_BLOCKS - head)
     ms = e0.elapsed_time(e1) / (N_BLOCKS - head)
-    counts = _counts()
-    want = {"swarm_chain": 0, "swarm_chunk": N_BLOCKS // CHUNK, "power_matmul": 0}
-    if counts != want:
-        raise AssertionError(f"{channels} mics replay: launches {counts}, "
-                             f"expected {want}")
+    counts = _counts(swarm_chunk=N_BLOCKS // CHUNK)
     lock = check_lock(f"{channels} mics replay", cfg, pipe, out.miso_beam[-1],
                       out.powers[-1])
 
@@ -616,9 +633,7 @@ def run_chunked_heatmap(device):
     _reset_counts()
     got = fd.fft_heatmap_powers_chunked(windows, models["pallas"])
     torch.cuda.synchronize()
-    counts = _counts()
-    if counts != {"swarm_chain": 0, "swarm_chunk": 0, "power_matmul": 1}:
-        raise AssertionError(f"chunked heatmap: launches {counts}")
+    counts = _counts(power_matmul=1)
     want = fd.fft_heatmap_powers_chunked(windows, models["fused"])
     err = float((got - want).abs().max() / want.abs().max())
     if not err <= 1e-4:
@@ -659,6 +674,262 @@ def run_chunked_heatmap(device):
     return counts["power_matmul"], ms, fused_ms
 
 
+def compare_das(channels: int, compute: str, device):
+    """The DAS-beam kernel (``das_beam``) against its twin on the heatmap's
+    operands: the 64 x 64 grid's delay split at ``channels`` mics (linear),
+    one window and a stack of 8 windows of a noisy plane wave.  Both round
+    the same inputs and sum in f32 in other orders: beams within 1e-5 of
+    the peak.  Returns (max abs error, kernel ms, twin ms) of one window."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.models.mimo import make_mimo_model
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+
+    cfg = Config()
+    s, t = cfg.dsp.shift_range, cfg.dsp.block_size
+    pts = ant.multi_array_cluster(channels)
+    model = make_mimo_model(pts, cfg.mimo, cfg.dsp, cfg.array, device=device)
+    stream = torch.as_tensor(plane_wave_block(
+        pts, [SOURCE], 0, s + 8 * t, cfg.array, noise_std=0.05,
+        rng=np.random.default_rng(channels)), device=device)
+    stack = stream.unfold(-1, s + t, t).movedim(-2, 0)         # [8, C, S+T]
+    worst = 0.0
+    for what, x in (("1 window", stack[0]), ("8 windows", stack)):
+        got = cd.das_beam(x, model.shift, model.tap_weights, span=s, compute=compute)
+        want = cd.das_beam_reference(x, model.shift, model.tap_weights, span=s,
+                                     compute=compute)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not (torch.isfinite(got).all() and rel <= 1e-5):
+            raise AssertionError(f"das_beam vs twin {rel:.3g} > 1e-5 at {channels} "
+                                 f"mics {compute} {what}")
+        worst = max(worst, err) if what == "1 window" else worst
+        print(f"das_beam vs twin {channels:3d} mics {compute:8s} {what:9s}: max abs "
+              f"{err:.3g}, {rel:.3g} of the peak (tol 1e-5)", flush=True)
+    args = (model.shift, model.tap_weights)
+    ms = _cuda_ms(lambda: cd.das_beam(stack[0], *args, span=s, compute=compute), 50)
+    plain_ms = _cuda_ms(lambda: cd.das_beam_reference(stack[0], *args, span=s,
+                                                      compute=compute), 20)
+    ms8 = _cuda_ms(lambda: cd.das_beam(stack, *args, span=s, compute=compute), 20)
+    plain8 = _cuda_ms(lambda: cd.das_beam_reference(stack, *args, span=s,
+                                                    compute=compute), 5)
+    print(f"  time per call: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; 8 windows: "
+          f"kernel {ms8:.4f} ms, twin {plain8:.4f} ms", flush=True)
+    return worst, ms, plain_ms
+
+
+def compare_monopulse(channels: int, compute: str, device):
+    """The monopulse-chain kernel (``monopulse_chain``) against its twin on
+    the rows of :func:`chain_operands` (26 rows: trackers, listener,
+    seekers) under a random 5 x 26 mask, and on the listener's row alone
+    under 3 sub-steps (the MISO step).  Directions by great-circle angle.
+    One sub-step: every row within 1e-5 rad, the other fields within 1e-4
+    of their scale.  The chains: tracker and listener rows within the
+    full-chain bounds of :func:`compare_kernel`, seekers within 5e-2 rad.
+    Returns (worst tracker/listener direction error, kernel ms, twin ms)
+    of the 26-row chain."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+
+    ops, kw = chain_operands(channels, compute, device)
+    xyz, bp, packed = ops[0], ops[1], ops[3]
+    p = 26
+    rows = torch.cat([packed[:6, :p], packed[8:10, :p]]).contiguous()
+    mask = np.random.default_rng(channels).random((5, p)) > 0.3
+    mask[:, N_TRACKERS] = [True, True, True, False, False]    # the listener
+    ckw = dict(span=kw["span"], taps=2, theta_limit=kw["theta_limit"],
+               divisor=kw["divisor"])
+    full = full_chain_tol(compute)
+    listener = slice(N_TRACKERS, N_TRACKERS + 1)
+    settings = (
+        ("1 sub-step", rows, mask[:1], slice(0, p), slice(0, 0),
+         dict(pub=1e-5, grad=1e-4)),
+        ("26 rows", rows, mask, slice(0, N_TRACKERS + 1), slice(N_TRACKERS + 1, p),
+         full),
+        ("listener", rows[:, listener].contiguous(), np.ones((3, 1), bool),
+         slice(0, 1), slice(0, 0), full),
+    )
+    worst = 0.0
+    for label, r, m, pub, seek, tol in settings:
+        act = torch.as_tensor(m.astype(np.float32), device=device)
+        got = ctk.monopulse_chain(xyz, bp, r, act, **ckw).cpu().numpy()
+        want = ctk.monopulse_chain_reference(xyz, bp, r, act, **ckw).cpu().numpy()
+        scale = lambda v: max(float(np.abs(v).max()), 1e-30)  # noqa: E731
+        errs = {
+            "pub": _angle(got[0, pub], got[1, pub], want[0, pub], want[1, pub]),
+            "seek": (_angle(got[0, seek], got[1, seek], want[0, seek], want[1, seek])
+                     if seek.stop > seek.start else 0.0),
+            "grad": max(float(np.abs(got[i, pub] - want[i, pub]).max())
+                        / scale(want[i, pub]) for i in range(2, 6)),
+        }
+        bounds = dict(pub=tol["pub"], seek=full["seek"], grad=tol["grad"])
+        for name, e in errs.items():
+            if not np.isfinite(e) or e > bounds[name]:
+                raise AssertionError(f"monopulse_chain vs twin {name} error {e:.3g} > "
+                                     f"{bounds[name]} at {channels} mics {compute} "
+                                     f"{label}")
+        if label == "26 rows":
+            worst = errs["pub"]
+        print(f"monopulse_chain vs twin {channels:3d} mics {compute:8s} {label:10s}: "
+              + "  ".join(f"{k} {e:.3g} (tol {bounds[k]:g})" for k, e in errs.items()),
+              flush=True)
+    act = torch.as_tensor(mask.astype(np.float32), device=device)
+    ms = _cuda_ms(lambda: ctk.monopulse_chain(xyz, bp, rows, act, **ckw), 50)
+    plain_ms = _cuda_ms(lambda: ctk.monopulse_chain_reference(xyz, bp, rows, act,
+                                                              **ckw), 5)
+    print(f"  time per call, 26 rows x 5 sub-steps: kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms", flush=True)
+    return worst, ms, plain_ms
+
+
+def default_config(rows: int = 64):
+    """``Config()``, the CLI's default profile, on a rows x rows grid."""
+    from beamforming_lk_tpu_torch import Config, MimoConfig
+
+    return Config(mimo=MimoConfig(rows=rows, columns=rows))
+
+
+def end_to_end_default(device):
+    """6 blocks of the default profile (16x16 dense heatmap, 64 mics) on
+    ``device`` and on the CPU from the same state with the same draws.
+    Bounds: heatmap powers within 1e-4 of the peak, the listener's
+    direction within 1e-4 rad and its beam within 1e-2 of the peak; both
+    publish, their strongest targets within 0.05 rad.  (Over 10 iterations
+    a seeker clamped at theta = 0, where phi is arbitrary, may take another
+    path on each device, so the target sets are held functionally.)"""
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+
+    cfg = default_config(16)
+    pipes = [AwpuPipeline(cfg, channels=64, seed=0, device=d) for d in (device, "cpu")]
+    pipes[1].state = _state_to(pipes[0].state, "cpu")
+    rng = np.random.default_rng(6)
+    tc = cfg.tracker
+    worst = dict(powers=0.0, listener=0.0, beam=0.0)
+    for i in range(6):
+        blk = plane_wave_block(pipes[0].points, [SOURCE], i * 256, 256, cfg.array,
+                               noise_std=0.02, rng=rng)
+        draws = (rng.uniform(0, tc.theta_limit, tc.n_seekers).astype(np.float32),
+                 rng.uniform(0, 2 * np.pi, tc.n_seekers).astype(np.float32),
+                 *(rng.uniform(-1, 1, (2, tc.iterations, tc.n_seekers))
+                   * tc.theta_limit / 2).astype(np.float32))
+        a, b = (_state_to(p.process_block(blk, draws=draws), "cpu") for p in pipes)
+        ma, mb = (p.state.miso.particle for p in pipes)
+        errs = dict(
+            powers=float((a.powers - b.powers).abs().max() / b.powers.abs().max()),
+            listener=_angle(ma.theta.cpu(), ma.phi.cpu(), mb.theta, mb.phi),
+            beam=float((a.miso_beam - b.miso_beam).abs().max()
+                       / b.miso_beam.abs().max()),
+        )
+        worst = {k: max(worst[k], v) for k, v in errs.items()}
+    best = [max(p.targets(), key=lambda x: x["power"]) for p in pipes]
+    off = _angle(best[0]["theta"], best[0]["phi"], best[1]["theta"], best[1]["phi"])
+    print(f"end to end, default profile, {device} vs cpu, 6 blocks: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f", strongest targets {off:.3g} rad apart", flush=True)
+    for k, tol in (("powers", 1e-4), ("listener", 1e-4), ("beam", 1e-2)):
+        if not worst[k] <= tol:
+            raise AssertionError(f"default profile end to end {k} error "
+                                 f"{worst[k]:.3g} > {tol}")
+    if not off <= 0.05:
+        raise AssertionError(f"default profile end to end: strongest targets "
+                             f"{off:.3g} rad apart")
+
+
+def _timed_blocks(pipe, blocks, warm: int):
+    """Blocks through ``process_block``; returns (last outputs, device
+    ms/block and host ms/block after ``warm`` blocks)."""
+    import torch
+
+    for i, blk in enumerate(blocks):
+        if i == warm:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            h0 = time.perf_counter()
+        out = pipe.process_block(blk)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e1.record()
+    torch.cuda.synchronize()
+    n = len(blocks) - warm
+    return out, e0.elapsed_time(e1) / n, (time.perf_counter() - h0) * 1e3 / n
+
+
+def run_default(channels: int, device):
+    """The default profile (``Config()``) on 96 plane-wave blocks through
+    ``process_block``: the dense 64 x 64 heatmap through K4 every block,
+    10 iterations of the unfused tracker (one K0 launch each) and the MISO
+    step (one K0 launch), and no other kernel.  Returns (K0 launches, K4
+    launches, device ms/block, host ms/block)."""
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = default_config()
+    pipe = AwpuPipeline(cfg, channels=channels, seed=0, device=device)
+    blocks = _plane_wave_blocks(pipe, cfg, channels, device)
+    per_block = cfg.tracker.iterations + 1
+    _reset_counts()
+    out, ms, host_ms = _timed_blocks(pipe, blocks, 16)
+    counts = _counts(monopulse_chain=per_block * N_BLOCKS, das_beam=N_BLOCKS)
+    lock = check_lock(f"{channels} mics default", cfg, pipe, out.miso_beam, out.powers)
+    print(f"default profile {channels:3d} mics: {counts['monopulse_chain']} K0 + "
+          f"{counts['das_beam']} K4 launches / {N_BLOCKS} blocks ({per_block} K0 "
+          f"+ 1 K4 per block), {lock}; {ms:.4f} ms/block device, {host_ms:.4f} "
+          f"ms/block host", flush=True)
+    return counts["monopulse_chain"], counts["das_beam"], ms, host_ms
+
+
+def run_fallback(device):
+    """The realtime profile with a gain mask at 64 mics, which the fft
+    heatmap cannot take, so the pipeline falls back to the dense heatmap:
+    96 blocks live (K1 per block, K4 per heatmap block, every 3rd) and 96
+    through ``process_blocks`` (24 then 72; K2 and K4 once per 12 blocks),
+    locked on the source.  Returns (K4 launches, live ms/block, replay
+    ms/block, both on the device clock)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = realtime(Config())
+    gains = np.ones(64, np.float32)
+    gains[::9] = 0.5
+    pipes = [AwpuPipeline(cfg, channels=64, channel_mask=gains, seed=0,
+                          device=device) for _ in range(2)]
+    if pipes[0].step.mimo_model is None:
+        raise AssertionError("the gain-mask pipeline did not fall back to dense")
+    blocks = _plane_wave_blocks(pipes[0], cfg, 64, device)
+    every = cfg.mimo.heatmap_every
+    _reset_counts()
+    out, live_ms, _ = _timed_blocks(pipes[0], blocks, 16)
+    live = _counts(swarm_chain=N_BLOCKS, das_beam=N_BLOCKS // every)
+    last_map = out.powers       # block 95: the map of block 93
+    lock = check_lock("fallback live", cfg, pipes[0], out.miso_beam, last_map)
+    head = 24
+    _reset_counts()
+    pipes[1].process_blocks(blocks[:head])
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    stacked = pipes[1].process_blocks(blocks[head:])
+    e1.record()
+    torch.cuda.synchronize()
+    replay_ms = e0.elapsed_time(e1) / (N_BLOCKS - head)
+    replay = _counts(swarm_chunk=N_BLOCKS // CHUNK, das_beam=N_BLOCKS // CHUNK)
+    check_lock("fallback replay", cfg, pipes[1], stacked.miso_beam[-1],
+               stacked.powers[-1])
+    print(f"dense fallback (gain mask, 64 mics): live {live['swarm_chain']} K1 + "
+          f"{live['das_beam']} K4 launches / {N_BLOCKS} blocks, {lock}, "
+          f"{live_ms:.4f} ms/block; replay {replay['swarm_chunk']} K2 + "
+          f"{replay['das_beam']} K4 launches, {replay_ms:.4f} ms/block (device "
+          "clock)", flush=True)
+    return live["das_beam"] + replay["das_beam"], live_ms, replay_ms
+
+
 def main() -> int:
     import torch
 
@@ -666,6 +937,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this check runs on the card")
     print(_card_line(), flush=True)
     import beamforming_lk_tpu_torch  # noqa: F401  (fails outside the repo)
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
     from beamforming_lk_tpu_torch.ops import fft_das as fd
     from beamforming_lk_tpu_torch.ops import nvcc
@@ -677,10 +949,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     libs = nvcc.build_all([("swarm_chain", [ctk._SOURCE]),
-                           ("power_matmul", [fd._SOURCE])])
+                           ("power_matmul", [fd._SOURCE]),
+                           ("das_beam", [cd._SOURCE])])
     ctk._library()
     fd._library()
-    print(f"built swarm_chain and power_matmul in "
+    cd._library()
+    print(f"built swarm_chain, power_matmul and das_beam in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
           flush=True)
     for lib in libs:
@@ -701,12 +975,23 @@ def main() -> int:
         for compute in ("bfloat16", "float32"):
             k3[rows, compute] = compare_power(rows, compute, "cuda")
     end_to_end_check("cuda")
-    launches = dict.fromkeys(("swarm_chain", "swarm_chunk", "power_matmul"), 0)
+    launches = dict.fromkeys(_wrappers(), 0)
     for ch in (64, 256):
         launches["swarm_chain"] += run_slice(ch, "cuda")[0]
     for ch in (64, 256):
         launches["swarm_chunk"] += run_replay(ch, "cuda")[0]
     launches["power_matmul"] += run_chunked_heatmap("cuda")[0]
+    k4, k0 = {}, {}
+    for ch in (64, 256):
+        for compute in ("float32", "bfloat16"):
+            k4[ch, compute] = compare_das(ch, compute, "cuda")
+            k0[ch, compute] = compare_monopulse(ch, compute, "cuda")
+    end_to_end_default("cuda")
+    for ch in (64, 256):
+        n_k0, n_k4, _, _ = run_default(ch, "cuda")
+        launches["monopulse_chain"] += n_k0
+        launches["das_beam"] += n_k4
+    launches["das_beam"] += run_fallback("cuda")[0]
 
     def row(name, source, replaces, results, key):
         return {
@@ -724,6 +1009,10 @@ def main() -> int:
             "beamforming_lk_tpu/ops/pallas_tracker.py:1160", k2, (64, "bfloat16")),
         row("power_matmul", "power_matmul.cu",
             "beamforming_lk_tpu/ops/fft_das.py:412", k3, (16384, "bfloat16")),
+        row("monopulse_chain", "swarm_chain.cu",
+            "beamforming_lk_tpu/ops/pallas_tracker.py:411", k0, (64, "float32")),
+        row("das_beam", "das_beam.cu",
+            "beamforming_lk_tpu/ops/pallas_das.py:185", k4, (64, "float32")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Boundaries of the port: it loads no JAX, dispatches its kernels on the
-device of their tensors, and raises NotImplementedError for every
-configuration outside the ported slices."""
+device of their tensors, runs every configuration of the ported slices and
+raises NotImplementedError for every configuration outside them."""
 
 import dataclasses
 import os
@@ -15,7 +15,9 @@ torch.set_num_threads(1)
 
 from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
 from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
+from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block  # noqa: E402
 from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
+from beamforming_lk_tpu_torch.ops import cuda_das as cd  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
 from beamforming_lk_tpu_torch.ops import fft_das as fd  # noqa: E402
 
@@ -93,6 +95,27 @@ def test_power_matmul_rejects_devices_other_than_cuda_and_cpu():
         )
 
 
+def test_monopulse_chain_rejects_devices_other_than_cuda_and_cpu():
+    meta = torch.device("meta")
+    p = 13
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ctk.monopulse_chain(
+            torch.empty((4, 64), device=meta), torch.empty((64, 286), device=meta),
+            torch.empty((8, p), device=meta), torch.empty((5, p), device=meta),
+            span=32, theta_limit=1.5, divisor=256.0,
+        )
+
+
+def test_das_beam_rejects_devices_other_than_cuda_and_cpu():
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cd.das_beam(
+            torch.empty((64, 320), device=meta),
+            torch.empty((100, 64), dtype=torch.int32, device=meta),
+            torch.empty((100, 64, 2), device=meta), span=64,
+        )
+
+
 def _replace(cfg, part, **kw):
     return dataclasses.replace(cfg, **{part: dataclasses.replace(
         getattr(cfg, part), **kw)})
@@ -100,6 +123,15 @@ def _replace(cfg, part, **kw):
 
 _OUTSIDE = {
     "mesh": dict(kwargs=dict(mesh=object())),
+    "phat": dict(cfg=_replace(SMALL, "mimo", phat=True)),
+    "mvdr": dict(kwargs=dict(heatmap_mode="mvdr")),
+    "music": dict(kwargs=dict(heatmap_mode="music")),
+}
+
+# Configurations of the default-profile slice: the unfused tracker and
+# MISO steps, the XLA-chain backend, the dense heatmap and the fft
+# backend's fallback to it.
+_INSIDE = {
     "tracker_off": dict(kwargs=dict(enable_tracker=False)),
     "miso_off": dict(kwargs=dict(enable_miso=False)),
     "iterations_10": dict(cfg=_replace(SMALL, "tracker", iterations=10)),
@@ -108,9 +140,6 @@ _OUTSIDE = {
     "gain_mask": dict(kwargs=dict(channel_mask=np.full(64, 0.5, np.float32))),
     "non_lattice": dict(kwargs=dict(points=ant.create_antenna_grid() * np.array(
         [[1.0], [1.0], [0.0]], np.float32) + np.linspace(0, 0.01, 64)[None])),
-    "phat": dict(cfg=_replace(SMALL, "mimo", phat=True)),
-    "mvdr": dict(kwargs=dict(heatmap_mode="mvdr")),
-    "music": dict(kwargs=dict(heatmap_mode="music")),
 }
 
 
@@ -119,6 +148,27 @@ def test_outside_the_slice_raises(case):
     spec = _OUTSIDE[case]
     with pytest.raises(NotImplementedError):
         AwpuPipeline(spec.get("cfg", SMALL), **spec.get("kwargs", {}))
+
+
+@pytest.mark.parametrize("case", sorted(_INSIDE))
+def test_inside_the_slice_runs_two_blocks(case):
+    """Each configuration builds on the CPU and runs 2 blocks of a plane
+    wave: finite heatmap powers, a beam of one block, targets of every
+    tracker (zero beam or zero targets where MISO or the tracker is off)."""
+    spec = _INSIDE[case]
+    kwargs = spec.get("kwargs", {})
+    pipe = AwpuPipeline(spec.get("cfg", SMALL), **kwargs)
+    for i in range(2):
+        out = pipe.process_block(plane_wave_block(
+            pipe.points, [(0.5, 1.2, 5e3)], i * 256, 256,
+            rng=np.random.default_rng(i)))
+    assert out.powers.shape == (256,) and torch.isfinite(out.powers).all()
+    assert out.powers.max() > 0
+    assert out.miso_beam.shape == (256,) and out.targets.valid.shape == (4,)
+    assert out.miso_beam.any() == kwargs.get("enable_miso", True)
+    if not kwargs.get("enable_tracker", True):
+        assert not out.targets.valid.any() and not out.targets.power.any()
+    assert pipe.state.block_index == 2
 
 
 @pytest.mark.parametrize("method", ["calibrate", "save", "restore"])

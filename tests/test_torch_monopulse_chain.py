@@ -1,0 +1,153 @@
+"""The monopulse-chain kernel's plain twin (ops/cuda_tracker.py
+``monopulse_chain``) against the JAX package: its Pallas kernel
+``monopulse_chain_pallas`` in interpret mode and the chain of its XLA
+``_monopulse_step``, on identical numpy inputs (64 mics, 27 rows, random
+per-sub-step masks, dead channels, rows at the field-of-view edge).  The
+CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
+against this twin there."""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from beamforming_lk_tpu.models import tracker as jtk  # noqa: E402
+from beamforming_lk_tpu.ops import delay as jdl  # noqa: E402
+from beamforming_lk_tpu.ops import pallas_tracker as ptk  # noqa: E402
+from beamforming_lk_tpu_torch.config import ArrayConfig, DspConfig, TrackerConfig  # noqa: E402
+from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
+from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
+from beamforming_lk_tpu_torch.ops import delay as dl  # noqa: E402
+
+SPM = ArrayConfig().samples_per_meter
+PTS = ant.create_antenna_grid(8, 8, 0.02)
+P = 27
+
+
+def _setup(seed, interp="linear"):
+    """A random window [64, S+T], the probe span, rows at random directions
+    (four near the edges of the field of view) with random dynamics, and a
+    mask with two dead channels."""
+    dsp, tc = DspConfig(), TrackerConfig()
+    taps = dl.LINEAR_TAPS if interp == "linear" else dsp.fir_taps
+    span = dl.probe_span(PTS, SPM, taps, dsp.shift_range)
+    rng = np.random.default_rng(seed)
+    window = rng.standard_normal((64, dsp.shift_range + dsp.block_size)).astype(np.float32)
+    pw = window[:, dsp.shift_range - span:]
+    theta = np.concatenate([rng.uniform(0.05, 1.4, P - 4), [1.5, 1.55, 1.48, 0.01]])
+    rows = np.zeros((8, P), np.float32)
+    rows[0], rows[1] = theta, rng.uniform(0.0, 6.28, P)
+    rows[6] = rng.uniform(1e-4, 5e-4, P)
+    rows[7] = rng.uniform(0.02, 0.13, P)
+    mask = np.ones(64, np.float32)
+    mask[[7, 30]] = 0.0
+    kw = dict(span=span, taps=taps, theta_limit=tc.theta_limit,
+              divisor=float(dsp.block_size), interp=interp)
+    return pw, rows, mask, kw, rng
+
+
+def _twin(pw, rows, act, mask, kw, probe_layout="quadrant"):
+    pw_t = torch.as_tensor(np.ascontiguousarray(pw))
+    return ctk.monopulse_chain(
+        ctk.pack_geometry(PTS, SPM, channel_mask=mask), ctk.bandpass_window(pw_t),
+        torch.as_tensor(rows), torch.as_tensor(act.astype(np.float32)),
+        probe_layout=probe_layout, **kw,
+    ).numpy()
+
+
+@pytest.mark.parametrize("probe_layout,interp", [
+    ("quadrant", "linear"), ("horizontal", "linear"), ("quadrant", "fir"),
+])
+def test_twin_matches_pallas_chain_kernel(probe_layout, interp):
+    """5 sub-steps with a random mask and a nonzero state0: every field
+    within 1e-5 (the twin and the TPU kernel share the Cartesian probe
+    math; only the f32 summation order differs)."""
+    pw, rows, mask, kw, rng = _setup(0, interp)
+    rows[2:6] = rng.uniform(-0.5, 0.5, (4, P))
+    act = rng.random((5, P)) > 0.3
+    got = _twin(pw, rows, act, mask, kw, probe_layout)
+    out = ptk.monopulse_chain_pallas(
+        ptk.pack_geometry(PTS, SPM, channel_mask=mask),
+        ptk.bandpass_smaj_window(jnp.asarray(pw), kw["span"]),
+        rows[0], rows[1], rows[6], rows[7], jnp.asarray(act),
+        state0=tuple(rows[2:6]), probe_layout=probe_layout, interpret=True, **kw,
+    )
+    np.testing.assert_allclose(got, np.stack([np.asarray(o) for o in out]),
+                               rtol=0, atol=1e-5)
+
+
+def test_twin_matches_xla_monopulse_chain():
+    """Against the chain of the JAX package's XLA ``_monopulse_step`` (the
+    bounds of test_pallas_tracker.py): one sub-step, positions within 1e-6
+    (phi 1e-5) and gradients, radius and error within 1e-5 of their scale;
+    5 sub-steps, positions within 1e-4 (phi 1e-3)."""
+    pw, rows, mask, kw, rng = _setup(0)
+    unf = jdl.unfold_window(jnp.asarray(pw), kw["span"], pw.shape[-1] - kw["span"])
+    mono = functools.partial(
+        jtk._monopulse_step, window=None, points=jnp.asarray(PTS),
+        channel_mask=jnp.asarray(mask), theta_limit=kw["theta_limit"],
+        shift_range=64, mode="linear", fir_bank=None, samples_per_meter=SPM,
+        unfolded=unf)
+    for n_sub, atol_pos, atol_grad in ((1, 1e-6, 1e-5), (5, 1e-4, None)):
+        act = rng.random((n_sub, P)) > 0.3
+        z = jnp.zeros(P, jnp.float32)
+        pr = jtk.Particles(jnp.asarray(rows[0]), jnp.asarray(rows[1]), z, z, z, z)
+        for i in range(n_sub):
+            pr = mono(pr, jnp.asarray(act[i]), rate=jnp.asarray(rows[6]),
+                      spread=jnp.asarray(rows[7]))
+        got = _twin(pw, rows, act, mask, kw)
+        np.testing.assert_allclose(got[0], np.asarray(pr.theta), atol=atol_pos)
+        np.testing.assert_allclose(got[1], np.asarray(pr.phi), atol=atol_pos * 10)
+        if atol_grad is not None:
+            for g, want in zip(got[2:], pr[2:]):
+                want = np.asarray(want)
+                np.testing.assert_allclose(
+                    g, want, atol=atol_grad * max(1.0, float(np.abs(want).max())))
+
+
+def test_twin_passes_state0_through_never_active_rows():
+    pw, rows, mask, kw, _ = _setup(1)
+    rows[2:6] = np.array([0.1, 0.2, 0.3, 0.4], np.float32)[:, None]
+    act = np.zeros((3, P), bool)
+    act[:, :4] = True                               # rows 4.. never active
+    got = _twin(pw, rows, act, mask, kw)
+    np.testing.assert_array_equal(got[:, 4:], rows[:6, 4:])
+    assert not np.array_equal(got[:, :4], rows[:6, :4])
+
+
+def test_rows_are_independent():
+    """The unfused swarm step runs the seekers' step in sub-step 0 of the
+    trackers' chain, where the JAX package steps them after it: the same
+    numbers, because a row's sub-step reads only its own state and the
+    window.  One launch on trackers | seekers equals a tracker-only chain
+    and a seeker-only step."""
+    pw, rows, mask, kw, _ = _setup(2)
+    nt = 10
+    act = np.zeros((5, P), bool)
+    act[:, :nt] = True
+    act[0, nt:] = True
+    together = _twin(pw, rows, act, mask, kw)
+    trackers = _twin(pw, np.ascontiguousarray(rows[:, :nt]), act[:, :nt], mask, kw)
+    seekers = _twin(pw, np.ascontiguousarray(rows[:, nt:]), act[:1, nt:], mask, kw)
+    np.testing.assert_allclose(together, np.concatenate([trackers, seekers], 1),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_listener_refine_chain():
+    """P = 1 with 3 sub-steps (the MISO step's launch) against the JAX
+    kernel, within 1e-5."""
+    pw, rows, mask, kw, _ = _setup(3)
+    one = np.ascontiguousarray(rows[:, :1])
+    act = np.ones((3, 1), bool)
+    got = _twin(pw, one, act, mask, kw)
+    out = ptk.monopulse_chain_pallas(
+        ptk.pack_geometry(PTS, SPM, channel_mask=mask),
+        ptk.bandpass_smaj_window(jnp.asarray(pw), kw["span"]),
+        one[0], one[1], one[6], one[7], jnp.asarray(act), interpret=True, **kw)
+    np.testing.assert_allclose(got, np.stack([np.asarray(o) for o in out]),
+                               rtol=0, atol=1e-5)
