@@ -68,6 +68,19 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the torch package yet")
 
 
+def _device(device) -> torch.device:
+    """The torch device of an entry point's ``device`` argument: the card by
+    default; raises when CUDA is asked for on a host without it (the plain
+    twins run only when the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the pipeline runs on CUDA by default and this host has no CUDA "
+            "device; pass device='cpu' to run the kernels' plain twins"
+        )
+    return device
+
+
 def _ema_chain(maxes, prev_max, alpha: float):
     """All n EMA states ``m_j = a*max_j + (1-a)*m_{j-1}`` of a chunk's map
     maxima [n] in closed form (the recurrence is linear)."""
@@ -284,23 +297,25 @@ class AwpuStep(nn.Module):
 
 def make_awpu_step(points, cfg, channel_mask=None, mesh=None,
                    enable_mimo: bool = True, enable_tracker: bool = True,
-                   enable_miso: bool = True, device=None) -> AwpuStep:
-    """Build the step for one device: the fused tracker + MISO step, the
-    unfused tracker and MISO steps (either one off, or more than 4
-    iterations), or with both off the heatmap-only step.  Raises
-    ``NotImplementedError`` for a mesh."""
+                   enable_miso: bool = True, device="cuda") -> AwpuStep:
+    """Build the step for one device (the card unless ``device`` says
+    otherwise): the fused tracker + MISO step, the unfused tracker and MISO
+    steps (either one off, or more than 4 iterations), or with both off the
+    heatmap-only step.  Raises ``NotImplementedError`` for a mesh."""
     if mesh is not None:
         raise _not_ported("multi-device execution (mesh)")
     return AwpuStep(points, cfg, channel_mask, enable_mimo, enable_tracker,
-                    enable_miso, device)
+                    enable_miso, _device(device))
 
 
-def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device=None,
+def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device="cuda",
               generator: Optional[torch.Generator] = None) -> AwpuState:
-    """Fresh state: empty ring, swarm drawn from ``generator`` (or one
-    seeded with ``seed``), MISO at boresight."""
+    """Fresh state on ``device`` (the card by default): empty ring, swarm
+    drawn from ``generator`` (or one seeded with ``seed``), MISO at
+    boresight."""
     if mesh is not None:
         raise _not_ported("multi-device execution (mesh)")
+    device = _device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     return AwpuState(
@@ -318,17 +333,18 @@ class AwpuPipeline:
     """Host-side orchestrator for one array link (the reference's
     ``AWProcessingUnit``): owns the step, its state and its generator, and
     exposes ``process_block``, ``process_blocks``, ``steer``, ``targets``
-    and ``heatmap``."""
+    and ``heatmap``.  It runs on the card unless ``device`` names the CPU,
+    where the kernels' plain twins run."""
 
     def __init__(self, cfg, points=None, channel_mask=None, mesh=None,
                  seed: int = 0, enable_mimo: bool = True,
                  enable_tracker: bool = True, enable_miso: bool = True,
                  heatmap_mode: str = "das", channels: Optional[int] = None,
-                 device="cpu"):
+                 device="cuda"):
         if heatmap_mode != "das":
             raise _not_ported(f"heatmap_mode {heatmap_mode!r}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = _device(device)
         if self.device.type == "cuda":
             # f32 products in full precision, as the JAX package's HIGHEST.
             torch.backends.cuda.matmul.allow_tf32 = False

@@ -24,16 +24,25 @@
 // ops/cuda_tracker.py::swarm_chain_reference, swarm_chunk_reference and
 // monopulse_chain_reference.
 //
-// What bounds them on an H100: each runs as ONE thread block on one SM, and
-// each sub-step's probe directions depend on the previous sub-step's
-// powers, so they are latency-bound by that chain, not by bytes or FLOPs (a
-// block's window is 37 KB at 64 mics in bf16, 163 KB at 256 mics).  The
-// chunk kernel runs K times the single-block chain back to back on that SM,
-// so it saves host launches and operand prep, not device time.  The
-// monopulse chain is one iteration's sub-steps of the same chain (the
-// default profile launches it 10 times a block, plus once for the MISO
-// step); at 64 mics the PyTorch boundary ops around it, not its device
-// time, bound that profile.
+// What bounds them on an H100: each sub-step's probe directions depend on
+// the previous sub-step's powers, so the update is a chain of about 12
+// dependent phases a block, latency-bound, not bound by bytes or FLOPs (a
+// block's window is 37 KB at 64 mics in bf16, 163 KB at 256 mics).  Inside
+// an iteration the rows never meet: a row's sub-step reads only its own
+// row and the window, and its active flag changes only at the boundaries.
+// So the swarm kernels run as ONE thread block cluster of kClusterMax CTAs
+// (kClusterPortable where the card cannot schedule that many), and row r
+// belongs to CTA r mod N.  Each CTA holds a full copy of the rows and its
+// own copy of the window, runs every sub-step of an iteration on its own
+// rows with no cluster barrier, and at the iteration boundary reads the
+// six fields the sub-steps write (theta .. error) of the other CTAs' rows
+// through distributed shared memory.  Then every CTA runs the same
+// deterministic boundary on identical inputs, so every copy stays equal;
+// the MISO beam's samples are split over the CTAs and rank 0 writes the
+// rows.  Inside a CTA a probe beam's channel sum is split over the warps
+// left idle when there are fewer probes than warps; the partial beams are
+// summed in a fixed warp order, so results do not depend on timing.  The
+// monopulse chain keeps one CTA over all rows and one warp per probe.
 //
 // Why it gathers: the TPU kernel multiplies a dense one-hot stencil
 // [4P, span*C] with an s-major window because Mosaic has no gathers.  Here
@@ -41,27 +50,35 @@
 //     beam[t] = sum_c sum_j w_j(c) * bp[c, shift(c) + j + t],
 // which is taps/span of the dense work (2/32 at 64 mics), and rows that are
 // inactive in a sub-step are not computed at all: they keep their values,
-// exactly as in the masked computation.  One warp owns one probe row at a
-// time (lanes over time samples, a shuffle reduction for the power); the
+// exactly as in the masked computation.  Lanes run over time samples; the
 // iteration boundaries run in warp 0 with lanes over particle rows.  The
 // chunk kernel stages one block's window at a time (the TPU kernel holds
-// all K in VMEM; two 256-mic windows do not fit in 227 KB).
+// all K in VMEM; two 256-mic windows do not fit in 227 KB) and, where two
+// fit, copies block k+1's window with cp.async while block k runs.
 //
-// Later work: spread a sub-step's probe rows over several SMs (a cluster
-// sharing the window through distributed shared memory), stage the window
-// with TMA and overlap block k+1's window load with block k's chain, run
-// the contraction on tensor cores over a banded stencil, and capture the
-// per-block host ops of the live path in a CUDA graph.
+// Later work: multicast the window to the cluster with TMA instead of one
+// copy per CTA, split the f32 256-mic window's channels over a CTA pair,
+// run the contraction on tensor cores over a banded stencil, and capture
+// the per-block host ops of the live path in a CUDA graph.
 //
 // Numerics: the probe weights are rounded to the window's dtype before the
 // product and every sum is f32 (as w.astype(win.dtype) with an f32 dot);
-// sinf/cosf/sqrtf/floorf without fast math; the merge tests compare
-// cos(angle) > cos(closeness) as the TPU kernel does.
+// the beam contraction uses explicit fused multiply-adds, the row
+// arithmetic none (the library is built with -fmad=false, so it rounds as
+// the twins' tensor ops do); sinf/cosf/sqrtf/floorf without fast math; the
+// merge tests compare cos(angle) > cos(closeness) as the TPU kernel does.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 #include <string.h>
+
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -71,6 +88,12 @@ constexpr int kMaxTaps = 16;
 constexpr int kPerLane = 8;                 // beam samples per lane per pass
 constexpr int kTile = 32 * kPerLane;
 constexpr size_t kMaxSmem = 232448;         // 227 KB a block can use on sm_90
+constexpr int kClusterMax = 16;             // CTAs of a swarm launch
+constexpr int kClusterPortable = 8;         // where kClusterMax cannot run
+// The monopulse chain sums each probe in one warp: split over 4 warps, the
+// MISO step's single row takes another rounding path that the default
+// profile's listener amplifies past its card-vs-CPU bound (PERF.md).
+constexpr bool kChainSplit = false;
 constexpr float kPiF = (float)M_PI;
 constexpr float kPiHalfF = (float)(M_PI / 2.0);
 constexpr float kTwoPiF = (float)(2.0 * M_PI);
@@ -81,7 +104,8 @@ enum Row {
   FAM_T, FAM_S, FAM_M, TGT_TH, TGT_PH, TGT_VA, NROWS
 };
 constexpr int kStateRows = 8;
-// The monopulse chain's operand rows: the six particle fields, rate, spread.
+// The fields a sub-step writes (theta .. error), and the monopulse chain's
+// operand rows: those six, rate, spread.
 constexpr int kChainState = 6;
 constexpr int kChainRows = 8;
 
@@ -102,7 +126,8 @@ struct Params {
   long long block_index0;   // global index of block 0
   int n_blocks;
   int C, P, T, span, taps, n_iter, n_sub, refine, n_trackers;
-  int quadrant, fir, fir_phases, win_smem;
+  int quadrant, fir, fir_phases;
+  int n_win;                // windows staged in shared memory: 0, 1 or 2
   float theta_limit, sin_tl, cos_tl, inv_div, cos_closeness;
   float error_threshold, min_power_fraction;
   float cos_b[4], sin_b[4], blackman[kMaxTaps];
@@ -135,27 +160,30 @@ __device__ Block block_at(const Params& p, int k) {
 }
 
 struct Layout {
-  size_t win, w, sh, rows, pow, act, flags, list, misc, total;
+  size_t win, win_bytes, w, sh, part, rows, pow, act, flags, list, misc, total;
 };
 
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// Dynamic shared memory: [window (optional)] [per-warp stencil weights]
-// [per-warp shifts] [particle rows] [probe powers] [active flags]
-// [merge / capture-zone flags] [active row list] [scalars].
+// Dynamic shared memory: [n_win windows] [per-warp stencil weights]
+// [per-warp shifts] [per-warp partial beams] [particle rows] [probe
+// powers] [active flags] [merge / capture-zone flags] [active row list]
+// [scalars].
 __host__ __device__ inline Layout make_layout(int C, int P, int T, int span,
-                                              int taps, int elem,
-                                              bool win_smem) {
+                                              int taps, int elem, int n_win) {
   Layout L;
   size_t off = 0;
   L.win = off;
-  if (win_smem) off += align16((size_t)C * (span + T - 2) * elem);
+  L.win_bytes = align16((size_t)C * (span + T - 2) * elem);
+  off += n_win * L.win_bytes;
   L.w = off;
   off += align16((size_t)kWarps * C * taps * sizeof(float));
   L.sh = off;
   off += align16((size_t)kWarps * C * sizeof(int));
+  L.part = off;
+  off += align16((size_t)kWarps * kTile * sizeof(float));
   L.rows = off;
   off += align16((size_t)NROWS * P * sizeof(float));
   L.pow = off;
@@ -227,13 +255,15 @@ __device__ void probe_dir(const Params& p, float theta, float phi,
   }
 }
 
-// Warp-cooperative stencil of direction u: min-subtracted delays over ALL
-// channels (masked ones included), split at shift = (span - taps) -
-// floor(tau), weighted [frac, 1-frac] or by the closed-form windowed-sinc
-// row, times the channel mask; written to this warp's scratch.
+// Warp-cooperative stencil of direction u on channels [c0, c1):
+// min-subtracted delays (the min over ALL channels, masked ones included),
+// split at shift = (span - taps) - floor(tau), weighted [frac, 1-frac] or
+// by the closed-form windowed-sinc row, times the channel mask; written to
+// this warp's scratch at the channels' own offsets.
 template <typename WT>
 __device__ void warp_stencil(const Params& p, float ux, float uy, float uz,
-                             bool round_w, float* sw, int* ssh, int lane) {
+                             bool round_w, int c0, int c1, float* sw,
+                             int* ssh, int lane) {
   const int C = p.C, taps = p.taps, base = p.span - p.taps;
   const float* px = p.xyz;
   const float* py = px + C;
@@ -243,7 +273,7 @@ __device__ void warp_stencil(const Params& p, float ux, float uy, float uz,
   for (int c = lane; c < C; c += 32)
     tmin = fminf(tmin, ux * px[c] + uy * py[c] + uz * pz[c]);
   tmin = warp_min(tmin);
-  for (int c = lane; c < C; c += 32) {
+  for (int c = c0 + lane; c < c1; c += 32) {
     float tau = ux * px[c] + uy * py[c] + uz * pz[c];
     tau = fminf(fmaxf(tau - tmin, 0.0f), (float)base);
     const float whole = floorf(tau);
@@ -278,33 +308,33 @@ __device__ void warp_stencil(const Params& p, float ux, float uy, float uz,
   __syncwarp();
 }
 
-// Power of one probe beam over n_out samples, by one warp: lanes own time
-// samples, the weights and shifts come from the warp's scratch.
-template <typename WT>
-__device__ float warp_probe_power(const WT* win, int ldw, int C, int taps,
-                                  int n_out, const float* sw, const int* ssh,
-                                  int lane) {
-  float pw = 0.0f;
-  for (int t0 = 0; t0 < n_out; t0 += kTile) {
-    float acc[kPerLane];
+// One warp's part of a probe beam: samples t0 + lane + 32 i (i < kPerLane)
+// summed over channels [c0, c1) into acc, by fused multiply-adds.  Samples
+// at or past n_out re-read sample n_out - 1 (so every read stays in the
+// window and the loop carries no bound test); the caller drops them.
+// TAPS > 0 fixes the tap count at compile time, 0 reads it from `taps`.
+template <int TAPS, typename WT>
+__device__ __forceinline__ void warp_beam_part(
+    const WT* win, int ldw, int c0, int c1, int taps, int t0, int n_out,
+    const float* sw, const int* ssh, int lane, float* acc) {
+  const int nt = TAPS > 0 ? TAPS : taps;
+  int off[kPerLane];
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const WT* rp = win + (size_t)c * ldw + ssh[c] + t0 + lane;
-      const float* wc = sw + c * taps;
-      for (int j = 0; j < taps; ++j) {
-        const float w = wc[j];
-#pragma unroll
-        for (int i = 0; i < kPerLane; ++i)
-          if (t0 + lane + 32 * i < n_out)
-            acc[i] = acc[i] + w * load_f(rp + j + 32 * i);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i)
-      if (t0 + lane + 32 * i < n_out) pw = pw + acc[i] * acc[i];
+  for (int i = 0; i < kPerLane; ++i) {
+    off[i] = min(t0 + lane + 32 * i, n_out - 1);
+    acc[i] = 0.0f;
   }
-  return warp_sum(pw);
+#pragma unroll 2
+  for (int c = c0; c < c1; ++c) {
+    const WT* rp = win + (size_t)c * ldw + ssh[c];
+    const float* wc = sw + c * nt;
+    for (int j = 0; j < nt; ++j) {
+      const float w = wc[j];
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i)
+        acc[i] = __fmaf_rn(w, load_f(rp + off[i] + j), acc[i]);
+    }
+  }
 }
 
 // Iteration boundary, run by warp 0 (lanes over rows): merge close
@@ -437,11 +467,12 @@ struct Smem {
   int* flags;
   int* list;
   float* misc;
-  float* sw;   // this warp's stencil weights
-  int* ssh;    // this warp's shifts
+  float* sw;     // this warp's stencil weights
+  int* ssh;      // this warp's shifts
+  float* part;   // the partial beams, kTile per warp
   const float* sw0;
   const int* ssh0;
-  void* win;
+  void* win[2];  // the staged windows (when n_win says so)
 };
 
 __device__ Smem carve(const Params& p, const Layout& L, unsigned char* smem,
@@ -455,39 +486,73 @@ __device__ Smem carve(const Params& p, const Layout& L, unsigned char* smem,
   s.misc = reinterpret_cast<float*>(smem + L.misc);
   s.sw = reinterpret_cast<float*>(smem + L.w) + (size_t)warp * p.C * p.taps;
   s.ssh = reinterpret_cast<int*>(smem + L.sh) + (size_t)warp * p.C;
+  s.part = reinterpret_cast<float*>(smem + L.part);
   s.sw0 = reinterpret_cast<const float*>(smem + L.w);
   s.ssh0 = reinterpret_cast<const int*>(smem + L.sh);
-  s.win = smem + L.win;
+  s.win[0] = smem + L.win;
+  s.win[1] = smem + L.win + L.win_bytes;
   return s;
 }
 
-// The probe window the sub-steps read: staged in shared memory when the
-// layout has room for it, else read in place.  The caller's next barrier
-// publishes the staged copy.
+// Start copying a window [C, span+T-2] from global to shared memory: one
+// cp.async group of 16-byte copies where both ends allow it, else plain
+// loads (complete when this returns).  The caller waits for the group
+// (__pipeline_wait_prior) and then its barrier publishes the copy.
 template <typename WT>
-__device__ const WT* stage_window(const Params& p, const void* win_bp,
-                                  const Smem& s) {
-  const WT* win = static_cast<const WT*>(win_bp);
-  if (p.win_smem) {
-    WT* s_win = static_cast<WT*>(s.win);
-    const size_t n = (size_t)p.C * (p.span + p.T - 2);
-    for (size_t i = threadIdx.x; i < n; i += kThreads) s_win[i] = win[i];
-    win = s_win;
+__device__ void stage_window_async(const Params& p, const void* src,
+                                   void* dst) {
+  const size_t n = (size_t)p.C * (p.span + p.T - 2);
+  const size_t bytes = n * sizeof(WT);
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0) {
+    const float4* s4 = static_cast<const float4*>(src);
+    float4* d4 = static_cast<float4*>(dst);
+    for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads)
+      __pipeline_memcpy_async(d4 + i, s4 + i, 16);
+  } else {
+    const WT* s = static_cast<const WT*>(src);
+    WT* d = static_cast<WT*>(dst);
+    for (size_t i = threadIdx.x; i < n; i += kThreads) d[i] = s[i];
   }
-  return win;
+  __pipeline_commit();
+}
+
+// The active-row list of this CTA, built by warp 0: rows r with
+// r mod n_cta == rank and is_active(r), in increasing order, into s.list
+// (count in s.list[0]) and the flags s.act.  Ends with a barrier.
+template <typename F>
+__device__ void build_list(const Smem& s, int P, int rank, int n_cta,
+                           F is_active) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    int n = 0;
+    for (int r0 = 0; r0 < P; r0 += 32) {
+      const int r = r0 + lane;
+      const bool a = r < P && r % n_cta == rank && is_active(r);
+      if (r < P) s.act[r] = a;
+      const unsigned m = __ballot_sync(0xffffffffu, a);
+      if (a) s.list[1 + n + __popc(m & ((1u << lane) - 1u))] = r;
+      n += __popc(m);
+    }
+    if (lane == 0) s.list[0] = n;
+  }
+  __syncthreads();
 }
 
 // One 4-probe monopulse sub-step of the rows listed in s.list (count in
-// s.list[0], flags in s.act): one warp per probe beam gathered from the
-// window, then the discriminants and the theta-then-phi step per row.
-// Rows not in the list keep their values.  Called by every thread after the
-// barrier that publishes the list; ends with a barrier.
+// s.list[0], flags in s.act), then the discriminants and the
+// theta-then-phi step per row.  With `split` and fewer probes than warps,
+// each probe's channel sum is split over g = kWarps / n_probe consecutive
+// warps; their partial beams meet in shared memory and the group's first
+// warp sums them in warp order before squaring.  Without it one warp sums
+// a probe over all channels.  Rows not in the list keep their values.
+// Called by every thread after the barrier that publishes the list; ends
+// with a barrier.
 template <typename WT>
 __device__ void monopulse_substep(const Params& p, const WT* win,
-                                  const Smem& s) {
+                                  const Smem& s, bool split) {
   const int C = p.C, P = p.P, T = p.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldw = p.span + T - 2;
+  const int ldw = p.span + T - 2, n_out = T - 2;
   float* rows = s.rows;
   float* th = rows + TH * P;
   float* ph = rows + PH * P;
@@ -499,15 +564,58 @@ __device__ void monopulse_substep(const Params& p, const WT* win,
   const float* spread = rows + SPREAD * P;
 
   const int n_probe = 4 * s.list[0];
-  for (int q = warp; q < n_probe; q += kWarps) {
-    const int r = s.list[1 + (q >> 2)], pb = q & 3;
-    float ux, uy, uz;
-    probe_dir(p, th[r], ph[r], spread[r], pb, &ux, &uy, &uz);
-    warp_stencil<WT>(p, ux, uy, uz, true, s.sw, s.ssh, lane);
-    const float pw =
-        warp_probe_power(win, ldw, C, p.taps, T - 2, s.sw, s.ssh, lane);
-    if (lane == 0) s.pow4[r * 4 + pb] = pw * p.inv_div;
-    __syncwarp();  // the scratch is rewritten by the next probe
+  const int g =
+      !split || n_probe == 0 || n_probe >= kWarps ? 1 : kWarps / n_probe;
+  const int n_group = kWarps / g, grp = warp / g, sub = warp - grp * g;
+  const int c0 = sub * C / g, c1 = (sub + 1) * C / g;
+  float* part = s.part + warp * kTile;
+  for (int q0 = 0; q0 < n_probe; q0 += n_group) {
+    const int q = q0 + grp;
+    const bool busy = grp < n_group && q < n_probe;
+    const int r = busy ? s.list[1 + (q >> 2)] : 0, pb = q & 3;
+    if (busy) {
+      float ux, uy, uz;
+      probe_dir(p, th[r], ph[r], spread[r], pb, &ux, &uy, &uz);
+      warp_stencil<WT>(p, ux, uy, uz, true, c0, c1, s.sw, s.ssh, lane);
+    }
+    float pw = 0.0f;
+    for (int t0 = 0; t0 < n_out; t0 += kTile) {
+      float acc[kPerLane];
+      if (busy) {
+        if (p.taps == 2)
+          warp_beam_part<2>(win, ldw, c0, c1, 2, t0, n_out, s.sw, s.ssh,
+                            lane, acc);
+        else
+          warp_beam_part<0>(win, ldw, c0, c1, p.taps, t0, n_out, s.sw,
+                            s.ssh, lane, acc);
+      }
+      if (g > 1) {
+        if (busy) {
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) part[lane + 32 * i] = acc[i];
+        }
+        __syncthreads();
+        if (busy && sub == 0) {
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) {
+            float v = part[lane + 32 * i];
+            for (int k = 1; k < g; ++k) v = v + part[k * kTile + lane + 32 * i];
+            acc[i] = v;
+          }
+        }
+        __syncthreads();  // the partials are rewritten by the next pass
+      }
+      if (busy && sub == 0) {
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          if (t0 + lane + 32 * i < n_out) pw = pw + acc[i] * acc[i];
+      }
+    }
+    if (busy && sub == 0) {
+      pw = warp_sum(pw);
+      if (lane == 0) s.pow4[r * 4 + pb] = pw * p.inv_div;
+    }
+    __syncwarp();  // the stencil scratch is rewritten by the next probe
   }
   __syncthreads();
   for (int r = tid; r < P; r += kThreads) {
@@ -539,21 +647,36 @@ __device__ void monopulse_substep(const Params& p, const WT* win,
   __syncthreads();
 }
 
+// Bring every CTA's copy of the rows up to date after the sub-steps: each
+// row's sub-step fields (theta .. error) come from the CTA that owns it,
+// through distributed shared memory.  The first cluster barrier waits for
+// every CTA's sub-steps, the second for every read, so no CTA writes its
+// rows while another still reads them.
+__device__ void gather_rows(const Params& p, const Smem& s,
+                            cg::cluster_group& cluster) {
+  const int P = p.P;
+  const int rank = (int)cluster.block_rank(), n = (int)cluster.num_blocks();
+  cluster.sync();
+  for (int i = threadIdx.x; i < kChainState * P; i += kThreads) {
+    const int owner = (i % P) % n;
+    if (owner != rank) s.rows[i] = cluster.map_shared_rank(s.rows, owner)[i];
+  }
+  cluster.sync();
+}
+
 // One block's whole update over the particle rows in shared memory (the
-// counterpart of _make_swarm_block_update): stage the block's window, run
-// the iterations and the publish prune, write the block's state, mean and
-// MISO beam.  Called by every thread; ends with a barrier, so the caller
-// may touch the rows right after it.
+// counterpart of _make_swarm_block_update), on the block's window `win`
+// (staged and published by the caller): the iterations, the publish prune,
+// the block's state and mean (rank 0) and this CTA's samples of the MISO
+// beam.  Called by every thread of every CTA of the cluster; ends with a
+// barrier, and every CTA leaves with the same rows.
 template <typename WT>
-__device__ void block_update(const Params& p, const Block& b, const Smem& s) {
+__device__ void block_update(const Params& p, const Block& b, const Smem& s,
+                             const WT* win, cg::cluster_group& cluster) {
   const int C = p.C, P = p.P, T = p.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)cluster.block_rank(), n_cta = (int)cluster.num_blocks();
   float* rows = s.rows;
-
-  const WT* win = stage_window<WT>(p, b.win_bp, s);
-  if (tid == 0) s.misc[0] = 0.0f;
-  __syncthreads();
-
   float* th = rows + TH * P;
   float* ph = rows + PH * P;
   const float* trk = rows + TRK * P;
@@ -561,25 +684,21 @@ __device__ void block_update(const Params& p, const Block& b, const Smem& s) {
   const float* fs = rows + FAM_S * P;
   const float* fm = rows + FAM_M * P;
 
+  if (tid == 0) s.misc[0] = 0.0f;
+  __syncwarp();  // warp 0 reads the mean, even with no iteration
   for (int it = 0; it < p.n_iter; ++it) {
     for (int j = 0; j < p.n_sub; ++j) {
       // Trackers step while tracking, seekers ride sub-step 0, the MISO
-      // row while its refine budget lasts; only active rows are computed.
+      // row while its refine budget lasts; only this CTA's active rows
+      // are computed.
       const int slot = it * p.n_sub + j;
-      if (tid == 0) {
-        int n = 0;
-        for (int r = 0; r < P; ++r) {
-          const bool a = (ft[r] > 0.5f && trk[r] > 0.5f) ||
-                         (j == 0 && fs[r] > 0.5f) ||
-                         (slot < p.refine && fm[r] > 0.5f);
-          s.act[r] = a;
-          if (a) s.list[1 + n++] = r;
-        }
-        s.list[0] = n;
-      }
-      __syncthreads();
-      monopulse_substep<WT>(p, win, s);
+      build_list(s, P, rank, n_cta, [&](int r) {
+        return (ft[r] > 0.5f && trk[r] > 0.5f) || (j == 0 && fs[r] > 0.5f) ||
+               (slot < p.refine && fm[r] > 0.5f);
+      });
+      monopulse_substep<WT>(p, win, s, true);
     }
+    gather_rows(p, s, cluster);
     if (warp == 0) iteration_boundary(p, b, rows, s.flags, s.misc, it, lane);
     __syncthreads();
   }
@@ -596,59 +715,107 @@ __device__ void block_update(const Params& p, const Block& b, const Smem& s) {
     tm = warp_sum(tm);
     pm = warp_sum(pm);
     const float st = sinf(tm), ct = cosf(tm), sp = sinf(pm), cp = cosf(pm);
-    warp_stencil<WT>(p, st * cp, -st * sp, ct, false, s.sw, s.ssh, lane);
+    warp_stencil<WT>(p, st * cp, -st * sp, ct, false, 0, C, s.sw, s.ssh, lane);
   }
   __syncthreads();
-  const int ldr = p.span + T;
-  for (int t = tid; t < T; t += kThreads) {
-    float acc = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float* rp = b.win_raw + (size_t)c * ldr + s.ssh0[c] + t;
-      for (int j = 0; j < p.taps; ++j)
-        acc = acc + s.sw0[c * p.taps + j] * rp[j];
+  // This CTA's samples [t_lo, t_hi) of the MISO beam, in passes of at most
+  // kThreads samples; each sample's channel sum is split over the
+  // kThreads / m threads of a pass and summed in group order.
+  const int ldr = p.span + T, per = (T + n_cta - 1) / n_cta;
+  const int t_lo = min(T, rank * per), t_hi = min(T, t_lo + per);
+  for (int ta = t_lo; ta < t_hi; ta += kThreads) {
+    const int m = min(kThreads, t_hi - ta), groups = kThreads / m;
+    if (tid < groups * m) {
+      const int t = ta + tid % m;
+      float acc = 0.0f;
+      for (int c = tid / m; c < C; c += groups) {
+        const float* rp = b.win_raw + (size_t)c * ldr + s.ssh0[c] + t;
+        for (int j = 0; j < p.taps; ++j)
+          acc = acc + s.sw0[c * p.taps + j] * rp[j];
+      }
+      s.part[tid] = acc;
     }
-    b.out_beam[t] = acc;
+    __syncthreads();
+    if (tid < m) {
+      float v = s.part[tid];
+      for (int k = 1; k < groups; ++k) v = v + s.part[k * m + tid];
+      b.out_beam[ta + tid] = v;
+    }
+    __syncthreads();
   }
-  for (int i = tid; i < kStateRows * P; i += kThreads) b.out_rows[i] = rows[i];
-  if (tid == 0) *b.out_mean = s.misc[0];
+  if (rank == 0) {
+    for (int i = tid; i < kStateRows * P; i += kThreads) b.out_rows[i] = rows[i];
+    if (tid == 0) *b.out_mean = s.misc[0];
+  }
   __syncthreads();
 }
 
 template <typename WT>
 __device__ Smem enter(const Params& p, unsigned char* smem) {
   const Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps,
-                               (int)sizeof(WT), p.win_smem != 0);
+                               (int)sizeof(WT), p.n_win);
   const Smem s = carve(p, L, smem, threadIdx.x >> 5);
   for (int i = threadIdx.x; i < NROWS * p.P; i += kThreads)
     s.rows[i] = p.rows_in[i];
-  return s;  // block_update's first barrier publishes the rows
+  return s;  // the caller's next barrier publishes the rows
 }
 
 template <typename WT>
 __global__ void __launch_bounds__(kThreads, 1)
     swarm_chain_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const Smem s = enter<WT>(p, smem);
-  block_update<WT>(p, block_at<WT>(p, 0), s);
+  const Block b = block_at<WT>(p, 0);
+  const WT* win = static_cast<const WT*>(b.win_bp);
+  if (p.n_win) {
+    stage_window_async<WT>(p, b.win_bp, s.win[0]);
+    __pipeline_wait_prior(0);
+    win = static_cast<const WT*>(s.win[0]);
+  }
+  __syncthreads();
+  block_update<WT>(p, b, s, win, cluster);
+  cluster.sync();  // no CTA exits while another may read its rows
 }
 
 template <typename WT>
 __global__ void __launch_bounds__(kThreads, 1)
     swarm_chunk_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const Smem s = enter<WT>(p, smem);
   const int P = p.P;
   float* rows = s.rows;
+  if (p.n_win) stage_window_async<WT>(p, block_at<WT>(p, 0).win_bp, s.win[0]);
   for (int k = 0; k < p.n_blocks; ++k) {
+    const Block b = block_at<WT>(p, k);
     // Seeker reset from the pre-drawn table (gradient_ascend.cpp:295-299).
-    // Each row is handled by one thread here and in the carry below.
+    // Every CTA applies it, and the carry below, to its full copy.
     const float* rs = p.resets + (size_t)k * 3 * P;
     for (int r = threadIdx.x; r < P; r += kThreads)
       if (rs[r] > 0.5f && rows[FAM_S * P + r] > 0.5f) {
         rows[TH * P + r] = rs[P + r];
         rows[PH * P + r] = rs[2 * P + r];
       }
-    block_update<WT>(p, block_at<WT>(p, k), s);
+    const WT* win = static_cast<const WT*>(b.win_bp);
+    if (p.n_win == 2) {
+      // Block k+1's window streams into the other buffer while block k
+      // runs (that buffer was last read by block k-1).
+      if (k + 1 < p.n_blocks) {
+        stage_window_async<WT>(p, block_at<WT>(p, k + 1).win_bp,
+                               s.win[(k + 1) & 1]);
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      win = static_cast<const WT*>(s.win[k & 1]);
+    } else if (p.n_win == 1) {
+      if (k > 0) stage_window_async<WT>(p, b.win_bp, s.win[0]);
+      __pipeline_wait_prior(0);
+      win = static_cast<const WT*>(s.win[0]);
+    }
+    __syncthreads();
+    block_update<WT>(p, b, s, win, cluster);
     // The published trackers feed block k+1's seeker avoidance.
     for (int r = threadIdx.x; r < P; r += kThreads) {
       const bool is_t = rows[FAM_T * P + r] > 0.5f;
@@ -657,11 +824,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       rows[TGT_VA * P + r] = rows[TRK * P + r];
     }
   }
+  cluster.sync();  // no CTA exits while another may read its rows
 }
 
 // n_sub chained sub-steps of the rows (monopulse_chain_pallas, kernel
-// _chain_kernel): rows_in [8, P] holds theta, phi, grad_theta, grad_phi,
-// radius, error, rate, spread; row r steps in sub-step j where
+// _chain_kernel) on one CTA: rows_in [8, P] holds theta, phi, grad_theta,
+// grad_phi, radius, error, rate, spread; row r steps in sub-step j where
 // active[j, r] > 0 and keeps its values otherwise.  Writes the first six
 // rows after the chain to out_rows [6, P].
 template <typename WT>
@@ -669,7 +837,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     monopulse_chain_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps,
-                               (int)sizeof(WT), p.win_smem != 0);
+                               (int)sizeof(WT), p.n_win);
   const Smem s = carve(p, L, smem, threadIdx.x >> 5);
   const int P = p.P, tid = threadIdx.x;
   for (int i = tid; i < kChainRows * P; i += kThreads) {
@@ -677,19 +845,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     s.rows[(f < kChainState ? f : RATE + f - kChainState) * P + i - f * P] =
         p.rows_in[i];
   }
-  const WT* win = stage_window<WT>(p, p.win_bp, s);
+  const WT* win = static_cast<const WT*>(p.win_bp);
+  if (p.n_win) {
+    stage_window_async<WT>(p, p.win_bp, s.win[0]);
+    __pipeline_wait_prior(0);
+    win = static_cast<const WT*>(s.win[0]);
+  }
   for (int j = 0; j < p.n_sub; ++j) {
-    if (tid == 0) {
-      int n = 0;
-      for (int r = 0; r < P; ++r) {
-        const bool a = p.active[(size_t)j * P + r] > 0.0f;
-        s.act[r] = a;
-        if (a) s.list[1 + n++] = r;
-      }
-      s.list[0] = n;
-    }
-    __syncthreads();  // (and, at j == 0, the staged rows and window)
-    monopulse_substep<WT>(p, win, s);
+    // (At j == 0 the list's barrier also publishes the rows and window.)
+    build_list(s, P, 0, 1,
+               [&](int r) { return p.active[(size_t)j * P + r] > 0.0f; });
+    monopulse_substep<WT>(p, win, s, kChainSplit);
   }
   for (int i = tid; i < kChainState * P; i += kThreads)
     p.out_rows[i] = s.rows[i];
@@ -697,18 +863,113 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 enum Kind { kSwarmChain, kSwarmChunk, kMonopulseChain };
 
+using KernelFn = void (*)(const Params);
+
+template <typename WT>
+KernelFn kernel_of(Kind kind) {
+  return kind == kSwarmChain   ? &swarm_chain_kernel<WT>
+         : kind == kSwarmChunk ? &swarm_chunk_kernel<WT>
+                               : &monopulse_chain_kernel<WT>;
+}
+
+// Set once per process: every kernel may take the whole 227 KB, and the
+// swarm kernels run kClusterMax CTAs a cluster where the card can schedule
+// such a cluster at that size (a non-portable size above 8), else
+// kClusterPortable.  One size for every launch keeps a chunk bitwise equal
+// to its single-block launches.
+struct Setup {
+  std::once_flag once;
+  cudaError_t error = cudaSuccess;          // setting the attributes
+  cudaError_t cluster_error = cudaSuccess;  // no cluster size schedulable
+  int cluster = 0;
+};
+Setup g_setup;
+
+bool cluster_fits(KernelFn kernel, int n) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kMaxSmem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // an unschedulable size is not a sticky error
+    return false;
+  }
+  return clusters > 0;
+}
+
+void set_up() {
+  const KernelFn swarm[4] = {
+      kernel_of<float>(kSwarmChain), kernel_of<float>(kSwarmChunk),
+      kernel_of<__nv_bfloat16>(kSwarmChain),
+      kernel_of<__nv_bfloat16>(kSwarmChunk)};
+  const KernelFn chain[2] = {kernel_of<float>(kMonopulseChain),
+                             kernel_of<__nv_bfloat16>(kMonopulseChain)};
+  for (KernelFn kernel : chain) {
+    g_setup.error = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (g_setup.error != cudaSuccess) return;
+  }
+  for (KernelFn kernel : swarm) {
+    g_setup.error = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (g_setup.error == cudaSuccess && kClusterMax > 8)
+      g_setup.error = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (g_setup.error != cudaSuccess) return;
+  }
+  for (int n : {kClusterMax, kClusterPortable}) {
+    bool all = true;
+    for (KernelFn kernel : swarm) all = all && cluster_fits(kernel, n);
+    if (all) {
+      g_setup.cluster = n;
+      return;
+    }
+  }
+  g_setup.cluster_error = cudaErrorLaunchOutOfResources;
+}
+
+// The swarm kernels' cluster size; sets *error when a launch cannot go.
+int cluster_size(Kind kind, cudaError_t* error) {
+  std::call_once(g_setup.once, set_up);
+  *error = g_setup.error != cudaSuccess ? g_setup.error
+           : kind != kMonopulseChain   ? g_setup.cluster_error
+                                       : cudaSuccess;
+  return g_setup.cluster;
+}
+
+// One launch: the swarm kernels as one cluster of cluster_size() CTAs,
+// the monopulse chain as one CTA.
 template <typename WT>
 cudaError_t launch(const Params& p, Kind kind, size_t smem,
                    cudaStream_t stream) {
-  void (*kernel)(const Params) =
-      kind == kSwarmChain   ? &swarm_chain_kernel<WT>
-      : kind == kSwarmChunk ? &swarm_chunk_kernel<WT>
-                            : &monopulse_chain_kernel<WT>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e;
+  const int n = cluster_size(kind, &e);
   if (e != cudaSuccess) return e;
-  kernel<<<1, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (kind != kMonopulseChain) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(n);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel_of<WT>(kind), p);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 int launch_blocks(Params& p, int win_bf16, Kind kind, const float* host_consts,
@@ -721,10 +982,14 @@ int launch_blocks(Params& p, int win_bf16, Kind kind, const float* host_consts,
   memcpy(p.sin_b, host_consts + 4, sizeof(p.sin_b));
   memcpy(p.blackman, host_consts + 8, sizeof(p.blackman));
   const int elem = win_bf16 ? 2 : 4;
-  Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps, elem, true);
-  p.win_smem = L.total <= kMaxSmem;
-  if (!p.win_smem) L = make_layout(p.C, p.P, p.T, p.span, p.taps, elem, false);
-  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // As many staged windows as fit: two let the chunk kernel prefetch.
+  Layout L;
+  for (p.n_win = kind == kSwarmChunk && p.n_blocks > 1 ? 2 : 1; p.n_win >= 0;
+       --p.n_win) {
+    L = make_layout(p.C, p.P, p.T, p.span, p.taps, elem, p.n_win);
+    if (L.total <= kMaxSmem) break;
+  }
+  if (p.n_win < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(win_bf16 ? launch<__nv_bfloat16>(p, kind, L.total, s)
                         : launch<float>(p, kind, L.total, s));
@@ -773,7 +1038,15 @@ extern "C" const char* swarm_chain_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Both entry points launch on `stream` and return cudaGetLastError() (0 on
+// The CTAs of every swarm-chain and swarm-chunk launch (one cluster), or
+// minus the CUDA error that made no cluster size schedulable.
+extern "C" int swarm_cluster_size() {
+  cudaError_t e;
+  const int n = cluster_size(kSwarmChain, &e);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// The entry points launch on `stream` and return cudaGetLastError() (0 on
 // success).  Host-memory operands:
 //   dims[12]    C, P, T, span, taps, n_iter, n_sub, refine, n_trackers,
 //               quadrant, fir, fir_phases;

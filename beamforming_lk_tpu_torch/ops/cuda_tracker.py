@@ -249,12 +249,13 @@ def swarm_chain_reference(
     block_index, n_iter, n_sub, refine, n_trackers, span,
     taps=dl.LINEAR_TAPS, theta_limit, divisor, closeness, error_threshold,
     probe_layout="quadrant", interp="linear", fir_phases=101,
-    min_power_fraction=0.0,
+    min_power_fraction=0.0, active_counts=None,
 ):
     """Plain PyTorch twin of the swarm-chain kernel, same operands and same
     f32 arithmetic (:func:`_substep`).  Every row is computed and inactive
     rows are masked back, which gives the same values as the kernel's
-    active-rows-only schedule.
+    active-rows-only schedule; a list ``active_counts`` receives each
+    sub-step's number of active rows (the rows the kernel computes).
 
     Returns ``(state [8, P], mean [], beam [T])``: the updated first
     :data:`STATE_ROWS` rows (tracking post-prune), the mean valid-seeker
@@ -283,6 +284,8 @@ def swarm_chain_reference(
             active = (is_tracker & trk_b) | (is_seeker & (j == 0))
             if it * n_sub + j < refine:
                 active = active | is_miso
+            if active_counts is not None:
+                active_counts.append(int(active.sum()))
             theta, phi, gt, gp, rad, err = _substep(
                 active, (theta, phi, gt, gp, rad, err), rate, spread, xyz,
                 window_bp, k, **sub_kw,
@@ -412,7 +415,12 @@ def swarm_chunk_reference(
 def _library():
     from beamforming_lk_tpu_torch.ops import nvcc
 
-    lib = ctypes.CDLL(nvcc.build("swarm_chain", [_SOURCE]))
+    return load_library(nvcc.build("swarm_chain", [_SOURCE]))
+
+
+def load_library(path):
+    """The built swarm-chain library at ``path``, its entry points typed."""
+    lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.swarm_chain_launch.argtypes = (
         [ptr, ptr, i32] + [ptr] * 7 + [i64] + [ptr] * 4
@@ -426,7 +434,19 @@ def _library():
     lib.monopulse_chain_launch.restype = i32
     lib.swarm_chain_error_string.argtypes = [i32]
     lib.swarm_chain_error_string.restype = ctypes.c_char_p
+    lib.swarm_cluster_size.argtypes = []
+    lib.swarm_cluster_size.restype = i32
     return lib
+
+
+def cluster_size() -> int:
+    """The CTAs of the thread block cluster that every :func:`swarm_chain`
+    and :func:`swarm_chunk` launch runs on the current card (16 where the
+    card can schedule it, else 8); raises when neither can run."""
+    n = _library().swarm_cluster_size()
+    if n <= 0:
+        _raise_on("swarm cluster", -n)
+    return n
 
 
 def check_operand(name, t, device, dtypes, shape):

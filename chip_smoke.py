@@ -10,16 +10,18 @@ Phases (any failed check raises, so the exit code is non-zero):
    per source, all at once;
 3. the swarm-chain kernel (K1) against its plain twin at the deployment
    shapes (64 and 256 mics, 27 particle rows, bf16 and f32 windows), with
-   times from CUDA events;
+   times from CUDA events, and with the FIR stencil at two of them;
 4. the chunk kernel (K2, 12 blocks a launch) against its twin and against
-   12 launches of K1, at the same shapes, with times;
+   12 launches of K1, at the same shapes, with times (K1 and K2 each run
+   as one thread block cluster, whose size is printed after the build);
 5. the power-stage kernel (K3) against its twin at the replay shapes
    (16 384 and 32 768 rows, F = 161, Tp = 256, bf16 and f32), with times;
 6. a small end-to-end check: 9 blocks through the f32 profile on the card
    and on the CPU (the twin), outputs compared;
 7. the live slice: ``AwpuPipeline(realtime(Config()), channels=64|256)`` on
    96 plane-wave blocks through ``process_block``, locked on the source,
-   with K1 launched once per block and the ms per block;
+   with K1 launched once per block and the ms per block; at 256 mics the
+   median and p99 per-block latency over 1008 more blocks;
 8. the replay slice: the same pipelines on 96 blocks through
    ``process_blocks``, with K2 launched once per 12 blocks, its first 24
    blocks held against ``process_block`` from the same seed, and the ms
@@ -42,7 +44,10 @@ Phases (any failed check raises, so the exit code is non-zero):
 13. the realtime profile's fallback to the dense heatmap (a gain mask, 64
     mics), live (K1 per block, K4 per heatmap) and through
     ``process_blocks`` (K2 and K4 once per 12 blocks);
-14. one JSON line of kernel results, then the final status line.
+14. one JSON line of kernel results (each kernel's time, its plain twin's,
+    its bound from this run's operands and active rows against the H100's
+    published peaks, and a library call's time where one exists), then
+    the final status line.
 """
 
 from __future__ import annotations
@@ -61,6 +66,12 @@ BUDGET_MS = 256 / 48828.0 * 1e3      # one block of audio: 5.24 ms
 N_BLOCKS = 96
 N_TRACKERS, N_SEEKERS = 10, 16       # TrackerConfig defaults: P = 27 rows
 CHUNK = 12                           # realtime().dsp.fused_chunk
+LIVE_LATENCY_BLOCKS = 1008           # latency samples of the 256-mic live slice
+# Published H100 SXM peaks at 700 W: HBM bytes/s; FLOP/s in f32 outside the
+# tensor cores (the swarm, monopulse and DAS kernels widen every operand to
+# f32) and in bf16 on the tensor cores (K3's bf16 matrix product).
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def _card_line() -> str:
@@ -73,19 +84,43 @@ def _card_line() -> str:
 
 
 def _cuda_ms(fn, n: int) -> float:
-    """Mean device time of ``fn()`` over ``n`` calls, after a warm-up."""
+    """Mean device time of ``fn()`` over ``n`` calls, after a warm-up.  A
+    spin kernel holds the device while the host enqueues the calls, so a
+    kernel shorter than its host-side launch is timed on the device, not
+    at the host's pace."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - h0) * 1e3
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * one_ms * n, 3000.0) * 2e6))  # ~2e6 cycles/ms
     t0.record()
     for _ in range(n):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS["float32"]):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    ``flops`` operations on ``nbytes`` bytes moved once, and which binds."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _probe_flops(probe_rows: int, channels: int, taps: int, n_out: int) -> float:
+    """Multiply-adds (x2) of ``probe_rows`` active rows' 4 probe beams."""
+    return 2.0 * 4 * probe_rows * channels * taps * n_out
 
 
 def _angle(theta1, phi1, theta2, phi2) -> float:
@@ -98,10 +133,12 @@ def _angle(theta1, phi1, theta2, phi2) -> float:
     return float((2.0 * np.arcsin(np.minimum(chord / 2.0, 1.0))).max())
 
 
-def chain_operands(channels: int, compute: str, device, seed: int = 0):
+def chain_operands(channels: int, compute: str, device, seed: int = 0,
+                   interp: str = "linear"):
     """Operands of one swarm-chain call at the deployment shapes, seeded so
     merge, jump and promote all fire: two coincident tracking trackers, a
-    published target on a seeker, free trackers, a plane-wave source."""
+    published target on a seeker, free trackers, a plane-wave source; the
+    stencil linear or the FIR bank's windowed sinc."""
     import torch
 
     from beamforming_lk_tpu_torch import Config, realtime
@@ -114,7 +151,8 @@ def chain_operands(channels: int, compute: str, device, seed: int = 0):
     tc, dsp = cfg.tracker, cfg.dsp
     rng = np.random.default_rng(seed)
     pts = ant.multi_array_cluster(channels)
-    span = dl.probe_span(pts, cfg.array.samples_per_meter, 2, dsp.shift_range)
+    taps = 2 if interp == "linear" else dsp.fir_taps
+    span = dl.probe_span(pts, cfg.array.samples_per_meter, taps, dsp.shift_range)
     blk = plane_wave_block(pts, [SOURCE], 0, span + dsp.block_size, cfg.array,
                            noise_std=0.02, rng=rng)
     pw = torch.as_tensor(blk, device=device)
@@ -144,7 +182,8 @@ def chain_operands(channels: int, compute: str, device, seed: int = 0):
         dl.das_power(pw[0, span - 2:span - 2 + dsp.block_size], divisor=dsp.block_size - 2),
     )
     kw = dict(block_index=3, n_iter=tc.iterations, n_sub=tc.tracker_steps,
-              refine=3, n_trackers=nt, span=span, taps=2,
+              refine=3, n_trackers=nt, span=span, taps=taps, interp=interp,
+              fir_phases=dsp.fir_phases,
               theta_limit=tc.theta_limit, divisor=float(dsp.block_size),
               closeness=tc.tracker_closeness,
               error_threshold=tc.error_threshold,
@@ -189,7 +228,8 @@ def chain_errors(got, want, tol, what: str, all_grads: bool = False) -> dict:
     return errs
 
 
-def compare_kernel(channels: int, compute: str, device, timing: bool):
+def compare_kernel(channels: int, compute: str, device, timing: bool,
+                   interp: str = "linear"):
     """Kernel (``swarm_chain``) against the twin on identical operands, at
     the deployment shapes, in two settings.  Directions are compared by
     great-circle angle (at theta = 0 phi is arbitrary, and the phi step,
@@ -207,13 +247,16 @@ def compare_kernel(channels: int, compute: str, device, timing: bool):
       / 1e-3 of scale; seekers (exploration state) within 5e-2 rad; beam
       within 1e-3 / 1e-4 of its peak; mean seeker power within 1e-2.
 
-    Both settings: tracking flags and start stamps equal.  Returns
-    (full-chain tracker/listener direction error, kernel ms, twin ms)."""
+    Both settings: tracking flags and start stamps equal.  Returns the
+    full-chain tracker/listener direction error ``err`` and, with
+    ``timing``, the kernel's and the twin's ms and the full chain's bound
+    (its active rows' probe beams and the MISO beam)."""
     import torch
 
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 
-    ops, kw = chain_operands(channels, compute, device)
+    ops, kw = chain_operands(channels, compute, device, interp=interp)
+    counts = []
     settings = (
         ("1 sub-step", dict(kw, n_iter=1, n_sub=1, refine=1),
          dict(pub=1e-5, seek=1e-5, grad=1e-4, beam=1e-5, mean=1e-5)),
@@ -223,23 +266,32 @@ def compare_kernel(channels: int, compute: str, device, timing: bool):
         jumps = ops[4][:, :kws["n_iter"]].contiguous()
         args = ops[:4] + (jumps,) + ops[5:]
         got = ctk.swarm_chain(*args, **kws)
-        want = ctk.swarm_chain_reference(*args, **kws)
+        want = ctk.swarm_chain_reference(
+            *args, **kws, active_counts=counts if label == "full chain" else None)
         if device != "cpu":
             torch.cuda.synchronize()
-        what = f"{channels} mics {compute} {label}"
+        what = f"{channels} mics {compute} {interp} {label}"
         errs = chain_errors([x.cpu().numpy() for x in got],
                             [x.cpu().numpy() for x in want], tol, what,
                             all_grads=label == "1 sub-step")
-        print(f"kernel vs twin {channels:3d} mics {compute:8s} {label:10s}: "
+        print(f"kernel vs twin {channels:3d} mics {compute:8s} {interp:6s} "
+              f"{label:10s}: "
               + "  ".join(f"{k} {e:.3g} (tol {tol[k]:g})"
                           for k, e in errs.items()), flush=True)
-    ms = plain_ms = float("nan")
+    out = dict(err=errs["pub"], library_ms=None)
     if timing:
-        ms = _cuda_ms(lambda: ctk.swarm_chain(*ops, **kw), 50)
-        plain_ms = _cuda_ms(lambda: ctk.swarm_chain_reference(*ops, **kw), 5)
-        print(f"  time per call, full chain: kernel {ms:.4f} ms, twin "
-              f"{plain_ms:.4f} ms", flush=True)
-    return errs["pub"], ms, plain_ms
+        c, t_len = ops[0].shape[1], ops[2].shape[1] - kw["span"]
+        p = ops[3].shape[1]
+        out["bound_ms"], out["bound_by"] = bound(
+            _probe_flops(sum(counts), c, kw["taps"], t_len - 2)
+            + 2.0 * c * kw["taps"] * t_len,
+            _nbytes(*ops) + 4 * (ctk.STATE_ROWS * p + 1 + t_len))
+        out["ms"] = _cuda_ms(lambda: ctk.swarm_chain(*ops, **kw), 50)
+        out["plain_ms"] = _cuda_ms(lambda: ctk.swarm_chain_reference(*ops, **kw), 5)
+        print(f"  time per call, full chain: kernel {out['ms']:.4f} ms, twin "
+              f"{out['plain_ms']:.4f} ms; bound {out['bound_ms'] * 1e3:.3f} us "
+              f"({out['bound_by']}, {sum(counts)} active rows)", flush=True)
+    return out
 
 
 def end_to_end_check(device):
@@ -381,12 +433,14 @@ def compare_chunk(channels: int, compute: str, device):
       carried between launches by the twin's carry): tracking flags equal,
       every row's direction within 1e-5 rad.
 
-    Returns (worst published-row error vs the twin, K2 ms, twin ms)."""
+    Returns the worst published-row error vs the twin ``err``, the K2 and
+    twin ms, and the bound of the 12 blocks' work."""
     import torch
 
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 
     ops, kw = chunk_operands(channels, compute, device)
+    counts = []
     got = ctk.swarm_chunk(*ops, **kw)
     repeated = ctk.swarm_chunk_reference(*ops, chain=ctk.swarm_chain, **kw)
     tol = full_chain_tol(compute)
@@ -396,7 +450,8 @@ def compare_chunk(channels: int, compute: str, device):
         one = ops[:1] + tuple(x[k:k + 1] for x in ops[1:3]) + (rows,) + tuple(
             x[k:k + 1] for x in ops[4:])
         want = ctk.swarm_chunk_reference(
-            *one, **dict(kw, block_index0=kw["block_index0"] + k))
+            *one, **dict(kw, block_index0=kw["block_index0"] + k),
+            active_counts=counts)
         errs = chain_errors([o[k].cpu().numpy() for o in got],
                             [o[0].cpu().numpy() for o in want], tol,
                             f"{channels} mics {compute} chunk block {k}")
@@ -411,6 +466,10 @@ def compare_chunk(channels: int, compute: str, device):
     if not rep <= 1e-5:
         raise AssertionError(f"chunk vs repeated K1 direction {rep:.3g} > 1e-5 "
                              f"at {channels} mics {compute}")
+    c, t_len, p = ops[0].shape[1], ops[2].shape[-1] - kw["span"], rows.shape[1]
+    bound_ms, bound_by = bound(
+        _probe_flops(sum(counts), c, 2, t_len - 2) + CHUNK * 2.0 * c * 2 * t_len,
+        _nbytes(*ops) + 4 * CHUNK * (ctk.STATE_ROWS * p + 1 + t_len))
     ms = _cuda_ms(lambda: ctk.swarm_chunk(*ops, **kw), 20)
     plain_ms = _cuda_ms(lambda: ctk.swarm_chunk_reference(*ops, **kw), 2)
     k1_ms = _cuda_ms(
@@ -421,15 +480,20 @@ def compare_chunk(channels: int, compute: str, device):
           + f"; vs {CHUNK} x K1: flags equal, direction {rep:.3g} (tol 1e-5), "
           f"bitwise equal {bitwise}", flush=True)
     print(f"  time per launch: K2 {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-          f"{CHUNK} x K1 {k1_ms:.4f} ms", flush=True)
-    return worst["pub"], ms, plain_ms
+          f"{CHUNK} x K1 {k1_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}, {sum(counts)} active rows)", flush=True)
+    return dict(err=worst["pub"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def compare_power(rows: int, compute: str, device):
     """The power-stage kernel (``power_matmul``) against its twin on
     [rows, 161] x [161, 256] operands.  Both widen the same (rounded)
     inputs to f32 and differ only in summation order: powers within 2e-5
-    of the largest.  Returns (max abs error, kernel ms, twin ms)."""
+    of the largest.  Returns the max abs error ``err``, the kernel's and
+    twin's ms, the bound, and the ms of the library's product alone
+    (``torch.matmul`` of ``[a_re | a_im]`` by ``[pow_cos ; pow_msin]``,
+    which leaves out the square-sum)."""
     import torch
 
     from beamforming_lk_tpu_torch.ops import fft_das as fd
@@ -448,12 +512,21 @@ def compare_power(rows: int, compute: str, device):
     if not (torch.isfinite(got).all() and rel <= 2e-5):
         raise AssertionError(f"power kernel vs twin {rel:.3g} > 2e-5 at "
                              f"{rows} rows {compute}")
+    f, t_len = pc.shape
+    bound_ms, bound_by = bound(4.0 * rows * f * t_len + 3.0 * rows * t_len,
+                               _nbytes(a_re, a_im, pc, ps) + 4 * rows,
+                               PEAK_FLOPS[compute])
     ms = _cuda_ms(lambda: fd.power_matmul(a_re, a_im, pc, ps), 50)
     plain_ms = _cuda_ms(lambda: fd.power_matmul_reference(a_re, a_im, pc, ps), 50)
+    a_cat = torch.cat([a_re, a_im], dim=1)
+    w_cat = torch.cat([pc, ps], dim=0).to(dtype)
+    library_ms = _cuda_ms(lambda: torch.matmul(a_cat, w_cat), 50)
     print(f"power kernel vs twin {rows:5d} rows {compute:8s}: max abs {err:.3g}, "
           f"{rel:.3g} of the largest (tol 2e-5); kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms", flush=True)
-    return err, ms, plain_ms
+          f"{plain_ms:.4f} ms, torch.matmul alone {library_ms:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def _source_cell(cfg):
@@ -515,7 +588,9 @@ def _plane_wave_blocks(pipe, cfg, channels, device):
 def run_slice(channels: int, device):
     """96 plane-wave blocks through the realtime profile, block by block;
     returns (K1 launches, ms per block on the device clock, host
-    ms/block)."""
+    ms/block).  At 256 mics it then measures the per-block latency
+    (``process_block`` + synchronize, host clock) over
+    LIVE_LATENCY_BLOCKS more blocks and prints its median and p99."""
     import torch
 
     from beamforming_lk_tpu_torch import Config, realtime
@@ -546,6 +621,16 @@ def run_slice(channels: int, device):
     print(f"live slice {channels:3d} mics: {counts['swarm_chain']} K1 launches / "
           f"{N_BLOCKS} blocks, {lock}; {ms:.4f} ms/block device, "
           f"{host_ms:.4f} ms/block host (budget {BUDGET_MS:.2f} ms)", flush=True)
+    if channels == 256:
+        lat = []
+        for i in range(LIVE_LATENCY_BLOCKS):
+            t = time.perf_counter()
+            pipe.process_block(blocks[i % N_BLOCKS])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        print(f"live slice 256 mics latency over {LIVE_LATENCY_BLOCKS} blocks: "
+              f"median {np.median(lat):.4f} ms, p99 {np.percentile(lat, 99):.4f} "
+              f"ms per block (budget {BUDGET_MS:.2f} ms)", flush=True)
     return counts["swarm_chain"], ms, host_ms
 
 
@@ -679,7 +764,8 @@ def compare_das(channels: int, compute: str, device):
     operands: the 64 x 64 grid's delay split at ``channels`` mics (linear),
     one window and a stack of 8 windows of a noisy plane wave.  Both round
     the same inputs and sum in f32 in other orders: beams within 1e-5 of
-    the peak.  Returns (max abs error, kernel ms, twin ms) of one window."""
+    the peak.  Returns the max abs error ``err``, the kernel's and twin's ms
+    and the bound of one window."""
     import torch
 
     from beamforming_lk_tpu_torch import Config
@@ -717,9 +803,14 @@ def compare_das(channels: int, compute: str, device):
     ms8 = _cuda_ms(lambda: cd.das_beam(stack, *args, span=s, compute=compute), 20)
     plain8 = _cuda_ms(lambda: cd.das_beam_reference(stack, *args, span=s,
                                                     compute=compute), 5)
+    d, c, taps = model.tap_weights.shape
+    bound_ms, bound_by = bound(2.0 * d * c * taps * t,
+                               _nbytes(stack[0], *args) + 4 * d * t)
     print(f"  time per call: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; 8 windows: "
-          f"kernel {ms8:.4f} ms, twin {plain8:.4f} ms", flush=True)
-    return worst, ms, plain_ms
+          f"kernel {ms8:.4f} ms, twin {plain8:.4f} ms; bound of one "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return dict(err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def compare_monopulse(channels: int, compute: str, device):
@@ -730,8 +821,8 @@ def compare_monopulse(channels: int, compute: str, device):
     One sub-step: every row within 1e-5 rad, the other fields within 1e-4
     of their scale.  The chains: tracker and listener rows within the
     full-chain bounds of :func:`compare_kernel`, seekers within 5e-2 rad.
-    Returns (worst tracker/listener direction error, kernel ms, twin ms)
-    of the 26-row chain."""
+    Returns the worst tracker/listener direction error ``err``, the
+    kernel's and twin's ms and the bound of the 26-row chain."""
     import torch
 
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
@@ -779,12 +870,18 @@ def compare_monopulse(channels: int, compute: str, device):
               + "  ".join(f"{k} {e:.3g} (tol {bounds[k]:g})" for k, e in errs.items()),
               flush=True)
     act = torch.as_tensor(mask.astype(np.float32), device=device)
+    n_out = bp.shape[1] - kw["span"]
+    bound_ms, bound_by = bound(
+        _probe_flops(int(mask.sum()), xyz.shape[1], 2, n_out),
+        _nbytes(xyz, bp, rows, act) + 4 * ctk.CHAIN_STATE * p)
     ms = _cuda_ms(lambda: ctk.monopulse_chain(xyz, bp, rows, act, **ckw), 50)
     plain_ms = _cuda_ms(lambda: ctk.monopulse_chain_reference(xyz, bp, rows, act,
                                                               **ckw), 5)
     print(f"  time per call, 26 rows x 5 sub-steps: kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms", flush=True)
-    return worst, ms, plain_ms
+          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by})",
+          flush=True)
+    return dict(err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def default_config(rows: int = 64):
@@ -961,11 +1058,15 @@ def main() -> int:
         for line in open(lib + ".log"):
             if "registers" in line or "smem" in line:
                 print("  ptxas:", line.strip())
+    print(f"K1 and K2 launch one thread block cluster of {ctk.cluster_size()} "
+          "CTAs (512 threads each)", flush=True)
 
     k1 = {}
     for ch in (64, 256):
         for compute in ("bfloat16", "float32"):
             k1[ch, compute] = compare_kernel(ch, compute, "cuda", timing=True)
+    for ch, compute in ((64, "float32"), (256, "bfloat16")):
+        compare_kernel(ch, compute, "cuda", timing=False, interp="fir")
     k2 = {}
     for ch in (64, 256):
         for compute in ("bfloat16", "float32"):
@@ -994,12 +1095,14 @@ def main() -> int:
     launches["das_beam"] += run_fallback("cuda")[0]
 
     def row(name, source, replaces, results, key):
+        r = results[key]
         return {
             "name": name, "route": "cuda",
             "source": f"beamforming_lk_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r[0] for r in results.values()),
-            "ms": results[key][1], "plain_ms": results[key][2],
+            "max_abs_err": max(v["err"] for v in results.values()),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
         }
 
     print(json.dumps({"kernels": [

@@ -88,7 +88,7 @@ def _port_from(jax_run, start, compute="float32"):
     ``start``, fed the same blocks and draws; per-block outputs."""
     states, draws = jax_run[:2]
     _, tc = _configs(compute)
-    pipe = AwpuPipeline(tc, points=PTS, seed=0)
+    pipe = AwpuPipeline(tc, points=PTS, seed=0, device="cpu")
     pipe.state = awpu_state_from_jax(states[start])
     blocks = _blocks()
     outs = [pipe.process_block(blocks[i], draws=draws[i])
@@ -138,8 +138,8 @@ def test_bf16_profile_locks_like_jax():
 
 def test_process_blocks_stacks_per_block_outputs():
     _, tc = _configs("float32")
-    a = AwpuPipeline(tc, points=PTS, seed=1)
-    b = AwpuPipeline(tc, points=PTS, seed=1)
+    a = AwpuPipeline(tc, points=PTS, seed=1, device="cpu")
+    b = AwpuPipeline(tc, points=PTS, seed=1, device="cpu")
     blocks = np.stack(_blocks()[:4])
     stacked = a.process_blocks(blocks)
     for i, blk in enumerate(blocks):

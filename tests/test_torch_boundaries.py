@@ -3,6 +3,7 @@ device of their tensors, runs every configuration of the ported slices and
 raises NotImplementedError for every configuration outside them."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ torch.set_num_threads(1)
 
 from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
 from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
+from beamforming_lk_tpu_torch.app import awpu  # noqa: E402
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block  # noqa: E402
 from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_das as cd  # noqa: E402
@@ -33,7 +35,8 @@ import numpy as np
 from beamforming_lk_tpu_torch import Config, MimoConfig, realtime
 from beamforming_lk_tpu_torch.app import AwpuPipeline
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
-pipe = AwpuPipeline(realtime(Config(mimo=MimoConfig(rows=16, columns=16))))
+pipe = AwpuPipeline(realtime(Config(mimo=MimoConfig(rows=16, columns=16))),
+                    device="cpu")
 for i in range(2):
     out = pipe.process_block(plane_wave_block(pipe.points, [(0.5, 1.2, 5e3)],
                                               i * 256, 256))
@@ -51,6 +54,30 @@ def test_port_runs_two_blocks_without_loading_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
+
+
+_ENTRY_POINTS = {
+    "AwpuPipeline": lambda **kw: awpu.AwpuPipeline(SMALL, **kw),
+    "make_awpu_step": lambda **kw: awpu.make_awpu_step(
+        ant.create_antenna_grid(), SMALL, **kw),
+    "awpu_init": lambda **kw: awpu.awpu_init(SMALL, 64, **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_points_default_to_cuda(entry):
+    param = inspect.signature(getattr(awpu, entry)).parameters["device"]
+    assert param.default == "cuda"
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_default_device_raises_without_cuda(monkeypatch, entry):
+    """On a host without CUDA the default device raises and never carries
+    on on the CPU; asking for the CPU runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _ENTRY_POINTS[entry]()
+    assert _ENTRY_POINTS[entry](device="cpu") is not None
 
 
 def test_swarm_chain_rejects_devices_other_than_cuda_and_cpu():
@@ -147,7 +174,8 @@ _INSIDE = {
 def test_outside_the_slice_raises(case):
     spec = _OUTSIDE[case]
     with pytest.raises(NotImplementedError):
-        AwpuPipeline(spec.get("cfg", SMALL), **spec.get("kwargs", {}))
+        AwpuPipeline(spec.get("cfg", SMALL), device="cpu",
+                     **spec.get("kwargs", {}))
 
 
 @pytest.mark.parametrize("case", sorted(_INSIDE))
@@ -157,7 +185,7 @@ def test_inside_the_slice_runs_two_blocks(case):
     tracker (zero beam or zero targets where MISO or the tracker is off)."""
     spec = _INSIDE[case]
     kwargs = spec.get("kwargs", {})
-    pipe = AwpuPipeline(spec.get("cfg", SMALL), **kwargs)
+    pipe = AwpuPipeline(spec.get("cfg", SMALL), device="cpu", **kwargs)
     for i in range(2):
         out = pipe.process_block(plane_wave_block(
             pipe.points, [(0.5, 1.2, 5e3)], i * 256, 256,
@@ -173,7 +201,7 @@ def test_inside_the_slice_runs_two_blocks(case):
 
 @pytest.mark.parametrize("method", ["calibrate", "save", "restore"])
 def test_state_io_and_calibration_raise(method):
-    pipe = AwpuPipeline(SMALL, enable_mimo=False)
+    pipe = AwpuPipeline(SMALL, enable_mimo=False, device="cpu")
     args = () if method == "calibrate" else ("state.npz",)
     with pytest.raises(NotImplementedError):
         getattr(pipe, method)(*args)
@@ -191,7 +219,7 @@ def test_fused_chunk_configuration_runs(monkeypatch):
 
     monkeypatch.setattr(ctk, "swarm_chunk", counting)
     assert SMALL.dsp.fused_chunk == 12
-    pipe = AwpuPipeline(SMALL)
+    pipe = AwpuPipeline(SMALL, device="cpu")
     out = pipe.process_blocks(np.zeros((12, 64, 256), np.float32))
     assert calls == [12]
     assert out.powers.shape == (12, 256) and out.miso_beam.shape == (12, 256)
@@ -200,6 +228,6 @@ def test_fused_chunk_configuration_runs(monkeypatch):
 
 
 def test_heatmap_can_be_disabled():
-    pipe = AwpuPipeline(SMALL, enable_mimo=False)
+    pipe = AwpuPipeline(SMALL, enable_mimo=False, device="cpu")
     out = pipe.process_block(np.zeros((64, 256), np.float32))
     assert not out.powers.any() and out.miso_beam.shape == (256,)

@@ -120,22 +120,38 @@ def test_twin_passes_state0_through_never_active_rows():
     assert not np.array_equal(got[:, :4], rows[:6, :4])
 
 
-def test_rows_are_independent():
-    """The unfused swarm step runs the seekers' step in sub-step 0 of the
-    trackers' chain, where the JAX package steps them after it: the same
-    numbers, because a row's sub-step reads only its own state and the
-    window.  One launch on trackers | seekers equals a tracker-only chain
-    and a seeker-only step."""
-    pw, rows, mask, kw, _ = _setup(2)
-    nt = 10
+def _split(split):
+    """Row groups of P = 27 rows laid out trackers (10) | listener | seekers
+    (16): trackers | listener and seekers, or the rows the swarm kernels'
+    cluster deals to each CTA, r mod N."""
+    if split == "trackers|seekers":
+        return [np.arange(10), np.arange(10, P)]
+    n = int(split.split()[-1])
+    return [np.arange(cta, P, n) for cta in range(n)]
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+@pytest.mark.parametrize("split", ["trackers|seekers", "r mod 8", "r mod 16"])
+def test_rows_are_independent(split, interp):
+    """A row's sub-step reads only its own state and the window, so any
+    split of the rows gives the same numbers.  Two splits rest on it: the
+    unfused swarm step runs the seekers' step in sub-step 0 of the
+    trackers' chain (the JAX package steps them after it), and the swarm
+    kernels' cluster runs row r's sub-steps of an iteration on CTA r mod N
+    with no barrier between CTAs.  Trackers step in all 5 sub-steps, the
+    listener in the first 3 (its refine budget), seekers in sub-step 0;
+    each group of rows run alone gives exactly those rows of the run on
+    all of them."""
+    pw, rows, mask, kw, _ = _setup(2, interp)
     act = np.zeros((5, P), bool)
-    act[:, :nt] = True
-    act[0, nt:] = True
+    act[:, :10] = True
+    act[:3, 10] = True
+    act[0, 11:] = True
     together = _twin(pw, rows, act, mask, kw)
-    trackers = _twin(pw, np.ascontiguousarray(rows[:, :nt]), act[:, :nt], mask, kw)
-    seekers = _twin(pw, np.ascontiguousarray(rows[:, nt:]), act[:1, nt:], mask, kw)
-    np.testing.assert_allclose(together, np.concatenate([trackers, seekers], 1),
-                               rtol=1e-6, atol=1e-7)
+    for idx in _split(split):
+        alone = _twin(pw, np.ascontiguousarray(rows[:, idx]),
+                      np.ascontiguousarray(act[:, idx]), mask, kw)
+        np.testing.assert_array_equal(alone, together[:, idx])
 
 
 def test_listener_refine_chain():

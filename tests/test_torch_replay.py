@@ -114,7 +114,7 @@ def test_process_blocks_matches_jax_fused_chunk(monkeypatch):
     jc, tc = _configs(reset=4)
     jpipe = JaxPipeline(jc, points=PTS, seed=3)
     draws = _jax_key_draws(jpipe.state.swarm.key, jc.tracker, 12)
-    pipe = AwpuPipeline(tc, points=PTS)
+    pipe = AwpuPipeline(tc, points=PTS, device="cpu")
     pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state))
     blocks = _blocks(12)
     want = jax.tree.map(np.asarray, jpipe.process_blocks(blocks))
@@ -138,7 +138,8 @@ def test_chunked_replay_matches_per_block(monkeypatch, lead, n, chunked):
     every 4th block, so mid-chunk): equal flags and starts, directions
     within 1e-5 rad, powers within 1e-5 of the peak."""
     _, tc = _configs(reset=4)
-    a, b = AwpuPipeline(tc, points=PTS, seed=2), AwpuPipeline(tc, points=PTS, seed=2)
+    a, b = (AwpuPipeline(tc, points=PTS, seed=2, device="cpu")
+            for _ in range(2))
     blocks = _blocks(lead + n)
     for blk in blocks[:lead]:
         a.process_block(blk)
@@ -170,7 +171,7 @@ def test_heatmap_only_replay_matches_jax_chunk_scan():
     jc, tc = _configs(fused_chunk=0, heatmap_every=1, heatmap_chunk=4)
     kw = dict(points=PTS, enable_tracker=False, enable_miso=False)
     jpipe = JaxPipeline(jc, seed=3, **kw)
-    pipe = AwpuPipeline(tc, **kw)
+    pipe = AwpuPipeline(tc, device="cpu", **kw)
     pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state))
     assert pipe.step.chunk == 4
     blocks = _blocks(8)
@@ -189,7 +190,8 @@ def test_heatmap_only_replay_keeps_the_decimation():
     """With a map every 3rd block the heatmap-only replay (chunks of 6)
     gives the per-block outputs: maps carried between decimated blocks."""
     _, tc = _configs(fused_chunk=0, heatmap_every=3, heatmap_chunk=6)
-    kw = dict(points=PTS, enable_tracker=False, enable_miso=False)
+    kw = dict(points=PTS, enable_tracker=False, enable_miso=False,
+              device="cpu")
     a, b = AwpuPipeline(tc, **kw), AwpuPipeline(tc, **kw)
     assert a.step.chunk == 6
     blocks = _blocks(12)

@@ -207,7 +207,7 @@ def test_pipeline_matches_jax(case, capfd):
     profile, kw = _PIPELINES[case]
     jc, tc = _pipeline_configs(profile)
     jpipe = JaxPipeline(jc, seed=3, **kw)
-    pipe = AwpuPipeline(tc, **kw)
+    pipe = AwpuPipeline(tc, device="cpu", **kw)
     dense = profile != "realtime_xla"
     assert ("using dense" in capfd.readouterr().err) == (profile == "realtime")
     assert (pipe.step.mimo_model is not None) == dense
@@ -242,7 +242,7 @@ def test_process_blocks_matches_process_block(case):
     within 1e-5 rad, powers and beams within 1e-5 of their peaks."""
     profile, kw = _PIPELINES[case]
     _, tc = _pipeline_configs(profile)
-    a, b = AwpuPipeline(tc, seed=2, **kw), AwpuPipeline(tc, seed=2, **kw)
+    a, b = (AwpuPipeline(tc, seed=2, device="cpu", **kw) for _ in range(2))
     assert a.step.chunk == (6 if profile == "realtime" else 0)
     blocks = np.stack([plane_wave_block(a.points, [SRC], i * 256, 256,
                                         noise_std=0.02,
