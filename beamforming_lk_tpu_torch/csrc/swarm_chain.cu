@@ -19,10 +19,10 @@
 // monopulse_chain_kernel replaces monopulse_chain_pallas (kernel
 // _chain_kernel): n_sub chained sub-steps with a per-sub-step row mask and
 // no iteration boundary (the unfused tracker and MISO steps run those in
-// PyTorch).  Its sub-step is block_update's: both call the __device__
-// monopulse_substep on a list of active rows.  The plain PyTorch twins are
-// ops/cuda_tracker.py::swarm_chain_reference, swarm_chunk_reference and
-// monopulse_chain_reference.
+// PyTorch).  Its sub-step computes what block_update's monopulse_substep
+// computes, in the same order (see "The monopulse chain" below).  The
+// plain PyTorch twins are ops/cuda_tracker.py::swarm_chain_reference,
+// swarm_chunk_reference and monopulse_chain_reference.
 //
 // What bounds them on an H100: each sub-step's probe directions depend on
 // the previous sub-step's powers, so the update is a chain of about 12
@@ -41,8 +41,30 @@
 // the MISO beam's samples are split over the CTAs and rank 0 writes the
 // rows.  Inside a CTA a probe beam's channel sum is split over the warps
 // left idle when there are fewer probes than warps; the partial beams are
-// summed in a fixed warp order, so results do not depend on timing.  The
-// monopulse chain keeps one CTA over all rows and one warp per probe.
+// summed in a fixed warp order, so results do not depend on timing.
+//
+// The monopulse chain has no iteration boundary, so its rows never meet
+// inside a launch: it runs as a grid of P CTAs, CTA r owning row r for all
+// n_sub sub-steps, with no barrier between CTAs.  A CTA whose row is
+// inactive in every sub-step copies the row out and exits.  Inside a CTA
+// the row's 4 probes run at once on 4 warps each, and a probe's n_out =
+// T - 2 beam samples are split over its warps by TIME, never by channel:
+// warp k of a probe owns the 64-sample segments k, k + 4, ... (2 samples a
+// lane, 32 apart), each sample summed over all channels then taps as one
+// warp of the single-CTA kernel summed it.  Each probe's 4 warps build its
+// stencil once (a quarter of the channels each), the beams meet in shared
+// memory, and one warp per probe squares and sums them in the lane order
+// of monopulse_substep (lane l sums samples l + 32 i in i order, then
+// warp_sum), so the chain gives monopulse_substep's bits with one warp per
+// probe.  The window is staged whole in each CTA with cp.async where it
+// fits beside the scratch (64 mics f32, bf16 at 64 and 256 mics); the f32
+// 256-mic window (325 KB) is read from L2 through L1 in place: K1's f32
+// window in L2 cost 9% over bf16 in shared memory, and splitting a row's
+// samples over a cluster would add a cluster barrier and a distributed-
+// shared-memory gather to each of the chain's dependent sub-steps.  The
+// launch plan (grid, threads, staged window, shared bytes) is
+// ops/cuda_tracker.py::monopulse_chain_plan, checked here against
+// make_chain_layout.
 //
 // Why it gathers: the TPU kernel multiplies a dense one-hot stencil
 // [4P, span*C] with an s-major window because Mosaic has no gathers.  Here
@@ -90,10 +112,10 @@ constexpr int kTile = 32 * kPerLane;
 constexpr size_t kMaxSmem = 232448;         // 227 KB a block can use on sm_90
 constexpr int kClusterMax = 16;             // CTAs of a swarm launch
 constexpr int kClusterPortable = 8;         // where kClusterMax cannot run
-// The monopulse chain sums each probe in one warp: split over 4 warps, the
-// MISO step's single row takes another rounding path that the default
-// profile's listener amplifies past its card-vs-CPU bound (PERF.md).
-constexpr bool kChainSplit = false;
+// The monopulse chain: warps per probe, beam samples per warp segment.
+constexpr int kChainProbeWarps = kWarps / 4;
+constexpr int kChainSeg = 64;
+constexpr int kChainPerLane = kChainSeg / 32;
 constexpr float kPiF = (float)M_PI;
 constexpr float kPiHalfF = (float)(M_PI / 2.0);
 constexpr float kTwoPiF = (float)(2.0 * M_PI);
@@ -827,38 +849,163 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();  // no CTA exits while another may read its rows
 }
 
+// The monopulse chain's dynamic shared memory: [the window, when staged]
+// [4 probes' stencil weights] [4 probes' shifts] [4 probe beams] [the
+// row's 8 fields, 4 probe powers].  ops/cuda_tracker.py::
+// monopulse_chain_plan computes the same bytes.
+struct ChainLayout {
+  size_t win, w, sh, beam, row, total;
+};
+
+__host__ __device__ inline ChainLayout make_chain_layout(int C, int T,
+                                                         int span, int taps,
+                                                         int elem, int n_win) {
+  ChainLayout L;
+  size_t off = 0;
+  L.win = off;
+  off += n_win * align16((size_t)C * (span + T - 2) * elem);
+  L.w = off;
+  off += align16((size_t)4 * C * taps * sizeof(float));
+  L.sh = off;
+  off += align16((size_t)4 * C * sizeof(int));
+  L.beam = off;
+  off += align16((size_t)4 * (T - 2) * sizeof(float));
+  L.row = off;
+  off += align16((size_t)(kChainRows + 4) * sizeof(float));
+  L.total = off;
+  return L;
+}
+
+// One warp's segment of a probe beam: samples t0 + lane + 32 i
+// (i < kChainPerLane) summed over all channels, then taps, by fused
+// multiply-adds (warp_beam_part's order), written to beam[t] for t < n_out.
+template <int TAPS, typename WT>
+__device__ __forceinline__ void chain_beam_segment(
+    const WT* win, int ldw, int C, int taps, int t0, int n_out,
+    const float* sw, const int* ssh, int lane, float* beam) {
+  int off[kChainPerLane];
+  float acc[kChainPerLane];
+#pragma unroll
+  for (int i = 0; i < kChainPerLane; ++i) {
+    off[i] = min(t0 + lane + 32 * i, n_out - 1);
+    acc[i] = 0.0f;
+  }
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const WT* rp = win + (size_t)c * ldw + ssh[c];
+    if constexpr (TAPS == 2) {
+      const float2 w = reinterpret_cast<const float2*>(sw)[c];
+#pragma unroll
+      for (int i = 0; i < kChainPerLane; ++i) {
+        acc[i] = __fmaf_rn(w.x, load_f(rp + off[i]), acc[i]);
+        acc[i] = __fmaf_rn(w.y, load_f(rp + off[i] + 1), acc[i]);
+      }
+    } else {
+      const float* wc = sw + c * taps;
+      for (int j = 0; j < taps; ++j) {
+        const float w = wc[j];
+#pragma unroll
+        for (int i = 0; i < kChainPerLane; ++i)
+          acc[i] = __fmaf_rn(w, load_f(rp + off[i] + j), acc[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kChainPerLane; ++i)
+    if (t0 + lane + 32 * i < n_out) beam[t0 + lane + 32 * i] = acc[i];
+}
+
+// The discriminants and the theta-then-phi step of one row (fields theta,
+// phi, grad_theta, grad_phi, radius, error, rate, spread) from its 4 probe
+// powers: monopulse_substep's row arithmetic.
+__device__ void chain_row_step(const Params& p, float* row, const float* pw) {
+  const float q1 = pw[0], q2 = pw[1], q3 = pw[2], q4 = pw[3];
+  const float total = fmaxf(q1 + q2 + q3 + q4, 1e-30f);
+  float g_t, g_p;
+  if (p.quadrant) {
+    g_t = ((q1 + q2) - (q3 + q4)) / total;
+    g_p = ((q1 + q4) - (q2 + q3)) / total;
+  } else {
+    g_t = (q1 - q3) / fmaxf(fmaxf(q1, q3), 1e-30f);
+    g_p = (q2 - q4) / fmaxf(fmaxf(q2, q4), 1e-30f);
+  }
+  const float theta = row[TH], sp = row[kChainState + 1];
+  const float k = row[kChainState];
+  const float adj = theta + sp > kPiHalfF ? theta - sp / 2.0f : theta;
+  float new_t = adj + k * g_t;
+  float new_p = row[PH] + (k * g_p) / sinf(1e-9f + new_t);
+  new_t = fminf(fmaxf(new_t, 0.0f), p.theta_limit);
+  new_p = new_p - floorf(new_p / kTwoPiF) * kTwoPiF;
+  row[TH] = new_t;
+  row[PH] = new_p;
+  row[GT] = g_t;
+  row[GP] = g_p;
+  row[RAD] = total * 0.25f;
+  row[ERR] = fabsf(g_t) + fabsf(g_p);
+}
+
 // n_sub chained sub-steps of the rows (monopulse_chain_pallas, kernel
-// _chain_kernel) on one CTA: rows_in [8, P] holds theta, phi, grad_theta,
-// grad_phi, radius, error, rate, spread; row r steps in sub-step j where
-// active[j, r] > 0 and keeps its values otherwise.  Writes the first six
-// rows after the chain to out_rows [6, P].
+// _chain_kernel), CTA r on row r: rows_in [8, P] holds theta, phi,
+// grad_theta, grad_phi, radius, error, rate, spread; row r steps in
+// sub-step j where active[j, r] > 0 and keeps its values otherwise.
+// Writes the first six rows after the chain to out_rows [6, P].
 template <typename WT>
 __global__ void __launch_bounds__(kThreads, 1)
     monopulse_chain_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(p.C, p.P, p.T, p.span, p.taps,
-                               (int)sizeof(WT), p.n_win);
-  const Smem s = carve(p, L, smem, threadIdx.x >> 5);
-  const int P = p.P, tid = threadIdx.x;
-  for (int i = tid; i < kChainRows * P; i += kThreads) {
-    const int f = i / P;
-    s.rows[(f < kChainState ? f : RATE + f - kChainState) * P + i - f * P] =
-        p.rows_in[i];
+  const int C = p.C, P = p.P, T = p.T, r = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bool any = false;
+  for (int j = 0; j < p.n_sub; ++j) any |= p.active[(size_t)j * P + r] > 0.0f;
+  if (!any) {
+    if (tid < kChainState) p.out_rows[(size_t)tid * P + r] = p.rows_in[(size_t)tid * P + r];
+    return;
   }
+  const ChainLayout L = make_chain_layout(C, T, p.span, p.taps,
+                                          (int)sizeof(WT), p.n_win);
+  const int q = warp / kChainProbeWarps, sub = warp % kChainProbeWarps;
+  float* sw = reinterpret_cast<float*>(smem + L.w) + (size_t)q * C * p.taps;
+  int* ssh = reinterpret_cast<int*>(smem + L.sh) + (size_t)q * C;
+  float* beams = reinterpret_cast<float*>(smem + L.beam);
+  float* row = reinterpret_cast<float*>(smem + L.row);
+  float* pw4 = row + kChainRows;
+  if (tid < kChainRows) row[tid] = p.rows_in[(size_t)tid * P + r];
   const WT* win = static_cast<const WT*>(p.win_bp);
   if (p.n_win) {
-    stage_window_async<WT>(p, p.win_bp, s.win[0]);
+    stage_window_async<WT>(p, p.win_bp, smem + L.win);
     __pipeline_wait_prior(0);
-    win = static_cast<const WT*>(s.win[0]);
+    win = reinterpret_cast<const WT*>(smem + L.win);
   }
+  __syncthreads();  // the row and the window
+  const int ldw = p.span + T - 2, n_out = T - 2;
+  const int c0 = sub * C / kChainProbeWarps, c1 = (sub + 1) * C / kChainProbeWarps;
   for (int j = 0; j < p.n_sub; ++j) {
-    // (At j == 0 the list's barrier also publishes the rows and window.)
-    build_list(s, P, 0, 1,
-               [&](int r) { return p.active[(size_t)j * P + r] > 0.0f; });
-    monopulse_substep<WT>(p, win, s, kChainSplit);
+    if (!(p.active[(size_t)j * P + r] > 0.0f)) continue;
+    float ux, uy, uz;
+    probe_dir(p, row[TH], row[PH], row[kChainState + 1], q, &ux, &uy, &uz);
+    warp_stencil<WT>(p, ux, uy, uz, true, c0, c1, sw, ssh, lane);
+    __syncthreads();  // every probe's stencil
+    for (int t0 = sub * kChainSeg; t0 < n_out; t0 += kChainProbeWarps * kChainSeg) {
+      if (p.taps == 2)
+        chain_beam_segment<2>(win, ldw, C, 2, t0, n_out, sw, ssh, lane,
+                              beams + q * n_out);
+      else
+        chain_beam_segment<0>(win, ldw, C, p.taps, t0, n_out, sw, ssh, lane,
+                              beams + q * n_out);
+    }
+    __syncthreads();  // the probe beams
+    if (warp < 4) {
+      const float* b = beams + warp * n_out;
+      float pw = 0.0f;
+      for (int t = lane; t < n_out; t += 32) pw = pw + b[t] * b[t];
+      pw = warp_sum(pw);
+      if (lane == 0) pw4[warp] = pw * p.inv_div;
+    }
+    __syncthreads();  // the powers
+    if (tid == 0) chain_row_step(p, row, pw4);
+    __syncthreads();  // the row, and the stencils are free again
   }
-  for (int i = tid; i < kChainState * P; i += kThreads)
-    p.out_rows[i] = s.rows[i];
+  if (tid < kChainState) p.out_rows[(size_t)tid * P + r] = row[tid];
 }
 
 enum Kind { kSwarmChain, kSwarmChunk, kMonopulseChain };
@@ -946,16 +1093,16 @@ int cluster_size(Kind kind, cudaError_t* error) {
 }
 
 // One launch: the swarm kernels as one cluster of cluster_size() CTAs,
-// the monopulse chain as one CTA.
+// the monopulse chain as a grid of `grid` CTAs.
 template <typename WT>
-cudaError_t launch(const Params& p, Kind kind, size_t smem,
+cudaError_t launch(const Params& p, Kind kind, size_t smem, int grid,
                    cudaStream_t stream) {
   cudaError_t e;
   const int n = cluster_size(kind, &e);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(1);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -972,15 +1119,21 @@ cudaError_t launch(const Params& p, Kind kind, size_t smem,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-int launch_blocks(Params& p, int win_bf16, Kind kind, const float* host_consts,
-                  void* stream) {
+// Copy the host constants into the operands; false if the dimensions do
+// not fit the kernels.
+bool set_consts(Params& p, const float* host_consts) {
   if (p.taps < 1 || p.taps > kMaxTaps || (!p.fir && p.taps != 2) || p.C < 1 ||
-      p.P < 1 || p.T < 3 || p.n_trackers > p.P || p.n_blocks < 1 ||
-      (kind == kMonopulseChain && p.n_sub < 1))
-    return (int)cudaErrorInvalidValue;
+      p.P < 1 || p.T < 3 || p.n_trackers > p.P || p.n_blocks < 1)
+    return false;
   memcpy(p.cos_b, host_consts, sizeof(p.cos_b));
   memcpy(p.sin_b, host_consts + 4, sizeof(p.sin_b));
   memcpy(p.blackman, host_consts + 8, sizeof(p.blackman));
+  return true;
+}
+
+int launch_blocks(Params& p, int win_bf16, Kind kind, const float* host_consts,
+                  void* stream) {
+  if (!set_consts(p, host_consts)) return (int)cudaErrorInvalidValue;
   const int elem = win_bf16 ? 2 : 4;
   // As many staged windows as fit: two let the chunk kernel prefetch.
   Layout L;
@@ -991,8 +1144,27 @@ int launch_blocks(Params& p, int win_bf16, Kind kind, const float* host_consts,
   }
   if (p.n_win < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, kind, L.total, s)
-                        : launch<float>(p, kind, L.total, s));
+  return (int)(win_bf16 ? launch<__nv_bfloat16>(p, kind, L.total, 1, s)
+                        : launch<float>(p, kind, L.total, 1, s));
+}
+
+// The monopulse chain on the caller's plan {grid, threads, staged windows,
+// shared bytes}, which must be the kernel's: one CTA of kThreads per row,
+// and the bytes of make_chain_layout within the 227 KB.
+int launch_chain(Params& p, int win_bf16, const int* plan,
+                 const float* host_consts, void* stream) {
+  if (!set_consts(p, host_consts) || p.n_sub < 1)
+    return (int)cudaErrorInvalidValue;
+  p.n_win = plan[2];
+  const ChainLayout L = make_chain_layout(p.C, p.T, p.span, p.taps,
+                                          win_bf16 ? 2 : 4, p.n_win);
+  if (plan[0] != p.P || plan[1] != kThreads || (p.n_win != 0 && p.n_win != 1) ||
+      (size_t)plan[3] != L.total || L.total > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(win_bf16
+                   ? launch<__nv_bfloat16>(p, kMonopulseChain, L.total, p.P, s)
+                   : launch<float>(p, kMonopulseChain, L.total, p.P, s));
 }
 
 Params make_params(const float* xyz, const void* win_bp, const float* win_raw,
@@ -1095,14 +1267,17 @@ extern "C" int swarm_chunk_launch(
 // spread), active [n_sub, P]; out_rows [6, P].  dims and scalars as above;
 // the fields the chain does not read (n_iter, refine, n_trackers,
 // cos(closeness), error_threshold, min_power_fraction) are ignored.
+// plan[4] is the launch plan {grid, threads, staged windows, shared bytes}
+// (ops/cuda_tracker.py::monopulse_chain_plan); a plan that is not the
+// kernel's returns cudaErrorInvalidValue.
 extern "C" int monopulse_chain_launch(
     const float* xyz, const void* win_bp, int win_bf16, const float* rows_in,
-    const float* active, float* out_rows, const int* dims,
+    const float* active, float* out_rows, const int* plan, const int* dims,
     const float* scalars, const float* host_consts, void* stream) {
   Params p = make_params(xyz, win_bp, nullptr, rows_in, nullptr, nullptr,
                          out_rows, nullptr, nullptr, dims, scalars);
   p.active = active;
   p.n_blocks = 1;
   p.n_trackers = 0;
-  return launch_blocks(p, win_bf16, kMonopulseChain, host_consts, stream);
+  return launch_chain(p, win_bf16, plan, host_consts, stream);
 }

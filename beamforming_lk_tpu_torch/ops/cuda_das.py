@@ -77,13 +77,39 @@ def das_beam_reference(window, shift, tap_weights, *, span: int,
     return torch.einsum("dcs,...cst->...dt", stencil, unf)
 
 
+def das_beam_plan(k: int, d: int, c: int, t: int, span: int, taps: int) -> dict:
+    """Launch plan of the DAS-beam kernel for ``k`` windows, ``d``
+    directions, ``c`` channels, ``t`` samples, a ``span`` and ``taps``:
+    blocks of ``threads`` threads over (direction tiles, windows, sample
+    tiles) (``grid``), each block ``dirs_per_block`` directions (one a
+    warp, ``run`` consecutive samples a lane) by
+    ``sample_tile`` samples, channels in tiles of ``channel_tile``: two
+    buffers of window rows of ``row_floats`` floats (column a at
+    a + a // 8) and one of (direction, channel) entries of
+    ``entry_floats`` floats (the tap weights, then the shift's padded
+    column and its residue mod 8).  ``smem_bytes`` is the
+    kernel's ``das_layout`` total, which the launch checks."""
+    run, warps, chan = 8, 32, 32
+    dirs, tile = warps, 32 * run
+    row = (tile + span) + (tile + span) // 8
+    entry = (taps + 5) // 4 * 4
+    win = (chan * row * 4 + 15) // 16 * 16
+    return {
+        "grid": (-(-d // dirs), k, -(-t // tile)), "threads": 32 * warps,
+        "dirs_per_block": dirs, "run": run,
+        "sample_tile": tile, "channel_tile": chan, "row_floats": row,
+        "entry_floats": entry,
+        "smem_bytes": 2 * win + dirs * chan * entry * 4,
+    }
+
+
 @functools.cache
 def _library():
     from beamforming_lk_tpu_torch.ops import nvcc
 
     lib = ctypes.CDLL(nvcc.build("das_beam", [_SOURCE]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.das_beam_launch.argtypes = [ptr, i64, i64, ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.das_beam_launch.argtypes = [ptr, i64, i64, ptr, ptr, ptr] + [i32] * 7 + [ptr, ptr]
     lib.das_beam_launch.restype = i32
     lib.das_beam_error_string.argtypes = [i32]
     lib.das_beam_error_string.restype = ctypes.c_char_p
@@ -132,11 +158,14 @@ def das_beam(window, shift, tap_weights, *, span: int, compute: str = "float32")
     d, taps = shift.shape[0], tap_weights.shape[-1]
     t = width - span
     out = torch.empty((k, d, t), dtype=torch.float32, device=device)
+    plan = das_beam_plan(k, d, c, t, span, taps)
     lib = _library()
     err = lib.das_beam_launch(
         stack.data_ptr(), stack.stride(0), stack.stride(1), shift.data_ptr(),
         tap_weights.data_ptr(), out.data_ptr(), k, d, c, t, span, taps,
-        int(compute == "bfloat16"), torch.cuda.current_stream(device).cuda_stream,
+        int(compute == "bfloat16"),
+        (ctypes.c_int * 5)(*plan["grid"], plan["threads"], plan["smem_bytes"]),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err:
         raise RuntimeError("das_beam kernel launch failed: "

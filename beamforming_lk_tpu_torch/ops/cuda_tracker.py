@@ -65,6 +65,11 @@ _NEARBY_DEG = (0.0, 90.0, 180.0, 270.0)
 _EPS = 1e-9
 _TWO_PI = 2.0 * math.pi
 _MAX_TAPS = 16
+#: Shared memory a thread block can use on an H100 (227 KB).
+MAX_SMEM = 232448
+#: The monopulse-chain kernel's threads per CTA and samples per warp segment.
+CHAIN_THREADS = 512
+CHAIN_SEGMENT = 64
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "csrc", "swarm_chain.cu",
@@ -428,7 +433,7 @@ def load_library(path):
     lib.swarm_chunk_launch.argtypes = (
         [ptr, ptr, i32] + [ptr] * 8 + [i32, i64] + [ptr] * 4
     )
-    lib.monopulse_chain_launch.argtypes = [ptr, ptr, i32] + [ptr] * 7
+    lib.monopulse_chain_launch.argtypes = [ptr, ptr, i32] + [ptr] * 8
     lib.swarm_chain_launch.restype = i32
     lib.swarm_chunk_launch.restype = i32
     lib.monopulse_chain_launch.restype = i32
@@ -639,6 +644,37 @@ def swarm_chunk(
 swarm_chunk.launches = 0
 
 
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def monopulse_chain_plan(c: int, p: int, t_len: int, span: int, taps: int,
+                         elem: int) -> dict:
+    """Launch plan of the monopulse-chain kernel for ``p`` rows of ``c``
+    channels, a block of ``t_len`` samples (``t_len - 2`` beam samples), a
+    probe ``span`` and ``taps``, on a window of ``elem``-byte values: one
+    CTA per row (``grid``) of ``threads`` threads, ``warps_per_probe``
+    warps on each of the 4 probes, each warp owning segments of
+    ``segment`` samples; the window staged in each CTA's shared memory
+    (``staged``, ``window_bytes``) where it fits beside the scratch, else
+    read from L2.  ``smem_bytes`` is the kernel's ``make_chain_layout``
+    total, which the launch checks."""
+    n_out = t_len - 2
+    window = _align16(c * (span + n_out) * elem)
+    scratch = (_align16(4 * c * taps * 4) + _align16(4 * c * 4)
+               + _align16(4 * n_out * 4) + _align16((CHAIN_STATE + 2 + 4) * 4))
+    if scratch > MAX_SMEM:
+        raise ValueError(f"the chain's scratch ({scratch} bytes) exceeds "
+                         f"{MAX_SMEM} bytes of shared memory")
+    staged = window + scratch <= MAX_SMEM
+    return {
+        "grid": p, "threads": CHAIN_THREADS,
+        "warps_per_probe": CHAIN_THREADS // 32 // 4, "segment": CHAIN_SEGMENT,
+        "staged": staged, "window_bytes": window,
+        "smem_bytes": scratch + (window if staged else 0),
+    }
+
+
 def monopulse_chain(
     xyz, window_bp, rows, active, *, span, taps=dl.LINEAR_TAPS, theta_limit,
     divisor, probe_layout="quadrant", interp="linear", fir_phases=101,
@@ -671,10 +707,13 @@ def monopulse_chain(
     require_cuda("monopulse_chain", device)
     out = torch.empty((CHAIN_STATE, p), dtype=torch.float32, device=device)
     t_len = window_bp.shape[-1] - span + 2
+    plan = monopulse_chain_plan(c, p, t_len, span, taps, window_bp.element_size())
     err = _library().monopulse_chain_launch(
         xyz.data_ptr(), window_bp.data_ptr(),
         int(window_bp.dtype == torch.bfloat16), rows.data_ptr(),
         active.data_ptr(), out.data_ptr(),
+        (ctypes.c_int * 4)(plan["grid"], plan["threads"], int(plan["staged"]),
+                           plan["smem_bytes"]),
         *_host_tail(device, c, p, t_len, span, taps, 1, n_sub, 0, 0,
                     probe_layout, interp, fir_phases, theta_limit, divisor,
                     0.0, 0.0, 0.0),

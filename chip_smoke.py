@@ -33,14 +33,16 @@ Phases (any failed check raises, so the exit code is non-zero):
     64 x 64 grid, 64 and 256 mics, f32 and bf16, one window and a stack
     of 8), and the monopulse-chain kernel (K0) against its twin (64 and
     256 mics, f32 and bf16, 26 rows under a random 5-sub-step mask and the
-    listener's 1 row under 3 sub-steps), with times;
+    listener's 1 row under 3 sub-steps), with their launch plans and
+    times, and both with the FIR stencil at two of those shapes;
 11. a small end-to-end check of the default profile (``Config()``: dense
     heatmap, 10 iterations on the XLA-chain backend, the unfused MISO):
     6 blocks on the card and on the CPU, outputs compared;
 12. the default profile: ``AwpuPipeline(Config(), channels=64|256)`` on 96
     plane-wave blocks through ``process_block``, locked on the source,
     with 11 K0 launches (10 iterations and the MISO step) and 1 K4 launch
-    per block and the ms per block;
+    per block and the ms per block, then K0's and K4's device ms in one
+    more block from CUDA events around each launch;
 13. the realtime profile's fallback to the dense heatmap (a gain mask, 64
     mics), live (K1 per block, K4 per heatmap) and through
     ``process_blocks`` (K2 and K4 once per 12 blocks);
@@ -759,29 +761,45 @@ def run_chunked_heatmap(device):
     return counts["power_matmul"], ms, fused_ms
 
 
-def compare_das(channels: int, compute: str, device):
-    """The DAS-beam kernel (``das_beam``) against its twin on the heatmap's
-    operands: the 64 x 64 grid's delay split at ``channels`` mics (linear),
-    one window and a stack of 8 windows of a noisy plane wave.  Both round
-    the same inputs and sum in f32 in other orders: beams within 1e-5 of
-    the peak.  Returns the max abs error ``err``, the kernel's and twin's ms
-    and the bound of one window."""
+def das_operands(channels: int, device, interp: str = "linear"):
+    """The default profile's heatmap model (the 64 x 64 grid's delay split
+    at ``channels`` mics, linear or the FIR bank's) and a stack of 8
+    windows [8, C, S+T] of a noisy plane wave, strided views of one stream
+    as the ring gives them."""
     import torch
 
     from beamforming_lk_tpu_torch import Config
     from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
     from beamforming_lk_tpu_torch.models.mimo import make_mimo_model
     from beamforming_lk_tpu_torch.ops import antenna as ant
-    from beamforming_lk_tpu_torch.ops import cuda_das as cd
 
     cfg = Config()
     s, t = cfg.dsp.shift_range, cfg.dsp.block_size
     pts = ant.multi_array_cluster(channels)
-    model = make_mimo_model(pts, cfg.mimo, cfg.dsp, cfg.array, device=device)
+    model = make_mimo_model(pts, cfg.mimo,
+                            dataclasses.replace(cfg.dsp, interp=interp),
+                            cfg.array, device=device)
     stream = torch.as_tensor(plane_wave_block(
         pts, [SOURCE], 0, s + 8 * t, cfg.array, noise_std=0.05,
         rng=np.random.default_rng(channels)), device=device)
-    stack = stream.unfold(-1, s + t, t).movedim(-2, 0)         # [8, C, S+T]
+    return model, stream.unfold(-1, s + t, t).movedim(-2, 0)
+
+
+def compare_das(channels: int, compute: str, device, interp: str = "linear",
+                timing: bool = True):
+    """The DAS-beam kernel (``das_beam``) against its twin on the heatmap's
+    operands: the 64 x 64 grid's delay split at ``channels`` mics (linear,
+    or FIR without timing), one window and a stack of 8 windows of a noisy
+    plane wave.  Both round the same inputs and sum in f32 in other orders:
+    beams within 1e-5 of the peak.  Returns the max abs error ``err`` and,
+    with ``timing``, the kernel's and twin's ms and the bound of one
+    window."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+
+    model, stack = das_operands(channels, device, interp)
+    s, t = model.shift_range, stack.shape[-1] - model.shift_range
     worst = 0.0
     for what, x in (("1 window", stack[0]), ("8 windows", stack)):
         got = cd.das_beam(x, model.shift, model.tap_weights, span=s, compute=compute)
@@ -794,8 +812,11 @@ def compare_das(channels: int, compute: str, device):
             raise AssertionError(f"das_beam vs twin {rel:.3g} > 1e-5 at {channels} "
                                  f"mics {compute} {what}")
         worst = max(worst, err) if what == "1 window" else worst
-        print(f"das_beam vs twin {channels:3d} mics {compute:8s} {what:9s}: max abs "
-              f"{err:.3g}, {rel:.3g} of the peak (tol 1e-5)", flush=True)
+        print(f"das_beam vs twin {channels:3d} mics {compute:8s} {interp:6s} "
+              f"{what:9s}: max abs {err:.3g}, {rel:.3g} of the peak (tol 1e-5)",
+              flush=True)
+    if not timing:
+        return dict(err=worst)
     args = (model.shift, model.tap_weights)
     ms = _cuda_ms(lambda: cd.das_beam(stack[0], *args, span=s, compute=compute), 50)
     plain_ms = _cuda_ms(lambda: cd.das_beam_reference(stack[0], *args, span=s,
@@ -806,14 +827,42 @@ def compare_das(channels: int, compute: str, device):
     d, c, taps = model.tap_weights.shape
     bound_ms, bound_by = bound(2.0 * d * c * taps * t,
                                _nbytes(stack[0], *args) + 4 * d * t)
+    plan = cd.das_beam_plan(1, d, c, t, s, taps)
+    print(f"  tile plan: grid {plan['grid']} x {plan['threads']} threads, "
+          f"{plan['dirs_per_block']} directions a block (one a warp, "
+          f"{plan['run']} consecutive samples a lane), channel tiles of "
+          f"{plan['channel_tile']} double-buffered, {plan['smem_bytes']} bytes "
+          "of shared memory", flush=True)
     print(f"  time per call: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; 8 windows: "
           f"kernel {ms8:.4f} ms, twin {plain8:.4f} ms; bound of one "
-          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+          f"{bound_ms * 1e3:.3f} us ({bound_by}, {bound_ms / ms:.1%} of it)",
+          flush=True)
     return dict(err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
-def compare_monopulse(channels: int, compute: str, device):
+def monopulse_operands(channels: int, compute: str, device,
+                       interp: str = "linear"):
+    """The monopulse-chain operands of :func:`compare_monopulse`: the
+    geometry, the bandpassed window, the first 26 rows of
+    :func:`chain_operands` as [8, 26] chain rows, a random 5 x 26 mask
+    (the listener active in the first 3 sub-steps), and the keywords."""
+    import torch
+
+    ops, kw = chain_operands(channels, compute, device, interp=interp)
+    xyz, bp, packed = ops[0], ops[1], ops[3]
+    p = 26
+    rows = torch.cat([packed[:6, :p], packed[8:10, :p]]).contiguous()
+    mask = np.random.default_rng(channels).random((5, p)) > 0.3
+    mask[:, N_TRACKERS] = [True, True, True, False, False]    # the listener
+    ckw = dict(span=kw["span"], taps=kw["taps"], theta_limit=kw["theta_limit"],
+               divisor=kw["divisor"], interp=interp,
+               fir_phases=kw["fir_phases"])
+    return xyz, bp, rows, mask, ckw
+
+
+def compare_monopulse(channels: int, compute: str, device,
+                      interp: str = "linear", timing: bool = True):
     """The monopulse-chain kernel (``monopulse_chain``) against its twin on
     the rows of :func:`chain_operands` (26 rows: trackers, listener,
     seekers) under a random 5 x 26 mask, and on the listener's row alone
@@ -821,20 +870,16 @@ def compare_monopulse(channels: int, compute: str, device):
     One sub-step: every row within 1e-5 rad, the other fields within 1e-4
     of their scale.  The chains: tracker and listener rows within the
     full-chain bounds of :func:`compare_kernel`, seekers within 5e-2 rad.
-    Returns the worst tracker/listener direction error ``err``, the
+    Linear, or the FIR stencil without timing.  Returns the worst
+    tracker/listener direction error ``err`` and, with ``timing``, the
     kernel's and twin's ms and the bound of the 26-row chain."""
     import torch
 
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 
-    ops, kw = chain_operands(channels, compute, device)
-    xyz, bp, packed = ops[0], ops[1], ops[3]
-    p = 26
-    rows = torch.cat([packed[:6, :p], packed[8:10, :p]]).contiguous()
-    mask = np.random.default_rng(channels).random((5, p)) > 0.3
-    mask[:, N_TRACKERS] = [True, True, True, False, False]    # the listener
-    ckw = dict(span=kw["span"], taps=2, theta_limit=kw["theta_limit"],
-               divisor=kw["divisor"])
+    xyz, bp, rows, mask, ckw = monopulse_operands(channels, compute, device,
+                                                  interp)
+    p = rows.shape[1]
     full = full_chain_tol(compute)
     listener = slice(N_TRACKERS, N_TRACKERS + 1)
     settings = (
@@ -847,6 +892,17 @@ def compare_monopulse(channels: int, compute: str, device):
     )
     worst = 0.0
     for label, r, m, pub, seek, tol in settings:
+        plan = ctk.monopulse_chain_plan(xyz.shape[1], r.shape[1], bp.shape[1]
+                                        - ckw["span"] + 2, ckw["span"],
+                                        ckw["taps"], bp.element_size())
+        print(f"monopulse_chain plan {channels:3d} mics {compute:8s} {interp:6s} "
+              f"{label:10s}: "
+              f"{plan['grid']} CTAs (one a row) x {plan['threads']} threads, "
+              f"{plan['warps_per_probe']} warps a probe on {plan['segment']}-sample "
+              "segments, window " + ("staged in shared memory" if plan["staged"]
+                                     else "read from L2")
+              + f" ({plan['window_bytes']} bytes), {plan['smem_bytes']} bytes of "
+              "shared memory", flush=True)
         act = torch.as_tensor(m.astype(np.float32), device=device)
         got = ctk.monopulse_chain(xyz, bp, r, act, **ckw).cpu().numpy()
         want = ctk.monopulse_chain_reference(xyz, bp, r, act, **ckw).cpu().numpy()
@@ -866,11 +922,14 @@ def compare_monopulse(channels: int, compute: str, device):
                                      f"{label}")
         if label == "26 rows":
             worst = errs["pub"]
-        print(f"monopulse_chain vs twin {channels:3d} mics {compute:8s} {label:10s}: "
+        print(f"monopulse_chain vs twin {channels:3d} mics {compute:8s} {interp:6s} "
+              f"{label:10s}: "
               + "  ".join(f"{k} {e:.3g} (tol {bounds[k]:g})" for k, e in errs.items()),
               flush=True)
+    if not timing:
+        return dict(err=worst)
     act = torch.as_tensor(mask.astype(np.float32), device=device)
-    n_out = bp.shape[1] - kw["span"]
+    n_out = bp.shape[1] - ckw["span"]
     bound_ms, bound_by = bound(
         _probe_flops(int(mask.sum()), xyz.shape[1], 2, n_out),
         _nbytes(xyz, bp, rows, act) + 4 * ctk.CHAIN_STATE * p)
@@ -878,8 +937,8 @@ def compare_monopulse(channels: int, compute: str, device):
     plain_ms = _cuda_ms(lambda: ctk.monopulse_chain_reference(xyz, bp, rows, act,
                                                               **ckw), 5)
     print(f"  time per call, 26 rows x 5 sub-steps: kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by})",
-          flush=True)
+          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}, "
+          f"{bound_ms / ms:.2%} of it)", flush=True)
     return dict(err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -957,11 +1016,49 @@ def _timed_blocks(pipe, blocks, warm: int):
     return out, e0.elapsed_time(e1) / n, (time.perf_counter() - h0) * 1e3 / n
 
 
+def _launch_ms(pipe, block) -> dict:
+    """One more block through ``process_block`` with CUDA events around
+    every K0 and K4 launch: the device ms of each kernel in that block.  A
+    spin kernel before each launch holds the device while the host
+    enqueues the events and the launch, so the events time the kernel, not
+    the host's pace."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+
+    spans = {"monopulse_chain": [], "das_beam": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda._sleep(1_000_000)                 # ~0.5 ms
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        call.launches = 0      # the wrapper counts on its module's name
+        return call
+
+    real = ctk.monopulse_chain, cd.das_beam
+    ctk.monopulse_chain = timed("monopulse_chain", real[0])
+    cd.das_beam = timed("das_beam", real[1])
+    try:
+        pipe.process_block(block)
+    finally:
+        ctk.monopulse_chain, cd.das_beam = real
+    torch.cuda.synchronize()
+    return {name: (len(ev), sum(a.elapsed_time(b) for a, b in ev))
+            for name, ev in spans.items()}
+
+
 def run_default(channels: int, device):
     """The default profile (``Config()``) on 96 plane-wave blocks through
     ``process_block``: the dense 64 x 64 heatmap through K4 every block,
     10 iterations of the unfused tracker (one K0 launch each) and the MISO
-    step (one K0 launch), and no other kernel.  Returns (K0 launches, K4
+    step (one K0 launch), and no other kernel.  Then one more block with
+    each K0 and K4 launch timed by CUDA events.  Returns (K0 launches, K4
     launches, device ms/block, host ms/block)."""
     from beamforming_lk_tpu_torch.app import AwpuPipeline
 
@@ -977,6 +1074,12 @@ def run_default(channels: int, device):
           f"{counts['das_beam']} K4 launches / {N_BLOCKS} blocks ({per_block} K0 "
           f"+ 1 K4 per block), {lock}; {ms:.4f} ms/block device, {host_ms:.4f} "
           f"ms/block host", flush=True)
+    per = _launch_ms(pipe, blocks[0])
+    if per["monopulse_chain"][0] != per_block or per["das_beam"][0] != 1:
+        raise AssertionError(f"default profile block launched {per}")
+    print(f"  one block, CUDA events around each launch: K0 "
+          f"{per['monopulse_chain'][1]:.4f} ms ({per_block} launches), K4 "
+          f"{per['das_beam'][1]:.4f} ms (1 launch) of device time", flush=True)
     return counts["monopulse_chain"], counts["das_beam"], ms, host_ms
 
 
@@ -1087,6 +1190,9 @@ def main() -> int:
         for compute in ("float32", "bfloat16"):
             k4[ch, compute] = compare_das(ch, compute, "cuda")
             k0[ch, compute] = compare_monopulse(ch, compute, "cuda")
+    for ch, compute in ((64, "float32"), (256, "bfloat16")):
+        compare_das(ch, compute, "cuda", interp="fir", timing=False)
+        compare_monopulse(ch, compute, "cuda", interp="fir", timing=False)
     end_to_end_default("cuda")
     for ch in (64, 256):
         n_k0, n_k4, _, _ = run_default(ch, "cuda")

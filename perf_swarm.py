@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
-"""Measure the port's swarm kernels and realtime profile on one CUDA card.
+"""Measure the port's kernels and profiles on one CUDA card.
 
     python3 perf_swarm.py clusters   # K1 and K2 at cluster sizes 16 and 8, K0
-    python3 perf_swarm.py numerics   # the card-vs-CPU checks per rounding path
     python3 perf_swarm.py phases     # K1 with fewer iterations and sub-steps
-    python3 perf_swarm.py profile    # live and replay at 64 and 256 mics
+    python3 perf_swarm.py profile    # realtime live and replay at 64 and 256 mics
+    python3 perf_swarm.py default    # the default profile at 64 and 256 mics
+    python3 perf_swarm.py versus DIR # K0, K4, K1 and K2 of a checkout at DIR
+                                     # against this tree's, in turns
+    python3 perf_swarm.py ablate     # K4 with parts of its inner step cut out
 
 ``clusters`` builds ``csrc/swarm_chain.cu`` as it is and a copy with the
 cluster size set to 8, holds each against the plain twins (as
 ``chip_smoke.py`` does), then times K1 and K2 at 64 and 256 mics in bf16
 and f32 with the two builds in turns (16, 8, 8, 16), and K0 with its
-twin.  ``numerics`` builds copies whose monopulse chain splits a probe's
-channels over warps as K1 does, or whose beam sums use a multiply and an
-add for each fused multiply-add, and runs ``chip_smoke.py``'s two
-end-to-end card-vs-CPU checks on each.  ``phases`` times K1 on
-``chip_smoke.py``'s operands cut to (iterations, sub-steps) of (0, 1),
-(1, 1), (1, 3), (1, 5) and (2, 5), which splits a block's time into the
-fixed part (launch, window staging, prune, MISO beam), sub-step 0, the
-later sub-steps and an iteration boundary.  ``profile`` runs ``AwpuPipeline(realtime(Config()))`` on plane-wave
-blocks: wall and host-enqueue ms per block, ``torch.profiler``'s device
-busy time, kernels and idle share per block over 48 blocks, and the
-per-block latency (``process_block`` + synchronize) over 1200 blocks.
-Both print the card's name and power limit first and a JSON summary last.
+twin.  ``phases`` times K1 on ``chip_smoke.py``'s operands cut to
+(iterations, sub-steps) of (0, 1), (1, 1), (1, 3), (1, 5) and (2, 5),
+which splits a block's time into the fixed part (launch, window staging,
+prune, MISO beam), sub-step 0, the later sub-steps and an iteration
+boundary.  ``profile`` runs ``AwpuPipeline(realtime(Config()))`` and
+``default`` runs ``AwpuPipeline(Config())`` (64 x 64 dense heatmap) on
+plane-wave blocks: wall and host-enqueue ms per block over 48 blocks
+after 24 warm ones, ``torch.profiler``'s device busy time, kernel times,
+kernels and idle share per block over 48 more, and the per-block latency
+(``process_block`` + synchronize) over 1200 blocks (``default``: 1008).
+``versus`` loads the kernel wrappers of another checkout of the repo (the
+parent commit, unpacked with ``git archive``), builds its sources beside
+this tree's, and on ``chip_smoke.py``'s operands holds each of its K0,
+K4, K1 and K2 outputs against this tree's for bitwise equality, then
+times the two in turns (other, this, this, other).  ``ablate`` times K4
+as built and three copies that each drop one part of a (direction,
+channel) step (the residue switch, the window loads, the entry loads;
+their beams are wrong on purpose), in turns.  Each mode prints the
+card's name and power limit first and a JSON summary last.
 """
 
 from __future__ import annotations
@@ -39,20 +49,18 @@ import chip_smoke as cs
 SHAPES = [(ch, compute) for ch in (64, 256) for compute in ("bfloat16", "float32")]
 
 
-FMA = "acc[i] = __fmaf_rn(w, load_f(rp + off[i] + j), acc[i]);"
-NO_FMA = "acc[i] = acc[i] + w * load_f(rp + off[i] + j);"
-
-
-def _variant(name: str, edits) -> tuple:
-    """(name, [path]) of a copy of the swarm-chain source with each
-    (line, replacement) of ``edits`` applied, for ``nvcc.build_all``."""
+def _variant(name: str, edits, source: str = "") -> tuple:
+    """(name, [path]) of a copy of ``source`` (the swarm-chain source by
+    default) with each (line, replacement) of ``edits`` applied, for
+    ``nvcc.build_all``."""
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
     from beamforming_lk_tpu_torch.ops import nvcc
 
-    src = open(ctk._SOURCE).read()
+    source = source or ctk._SOURCE
+    src = open(source).read()
     for line, repl in edits:
         if line not in src:
-            raise AssertionError(f"{ctk._SOURCE} has no line {line!r}")
+            raise AssertionError(f"{source} has no line {line!r}")
         src = src.replace(line, repl)
     os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
     path = os.path.join(nvcc.BUILD_DIR, f"{name}.cu")
@@ -120,28 +128,6 @@ def clusters() -> dict:
     return out
 
 
-def numerics() -> dict:
-    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
-
-    split = ("constexpr bool kChainSplit = false;",
-             "constexpr bool kChainSplit = true;")
-    libs = _build({"as built": [], "K0 split": [split],
-                   "K0 split, no FMA": [split, (FMA, NO_FMA)],
-                   "no FMA": [(FMA, NO_FMA)]})
-    out = {}
-    for label, lib in libs.items():
-        ctk._library = lambda lib=lib: lib
-        for check in (cs.end_to_end_default, cs.end_to_end_check):
-            print(f"-- {label}: {check.__name__}", flush=True)
-            try:
-                check("cuda")
-                out[f"{label}: {check.__name__}"] = "passed"
-            except AssertionError as e:
-                print(f"   failed: {e}", flush=True)
-                out[f"{label}: {check.__name__}"] = f"failed: {e}"
-    return out
-
-
 def phases() -> dict:
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 
@@ -160,8 +146,65 @@ def phases() -> dict:
     return out
 
 
+KERNEL_NAMES = {"swarm_kernel_ms": ("swarm_", "monopulse_chain"),
+                "das_beam_ms": ("das_beam",)}
+
+
+# Edits of csrc/das_beam.cu that each drop one part of a (direction,
+# channel) step; their beams are wrong, and only their times are read.
+_LOAD_RUN = """      load_run<kValues>(row + __float_as_int(ew[TAPS]),
+                        __float_as_int(ew[TAPS + 1]), v);"""
+_ENTRY = """        const float4 e4 = *reinterpret_cast<const float4*>(e + f);"""
+ABLATIONS = {
+    "as built": [],
+    "no residue switch": [(_LOAD_RUN, """      load_run<kValues, 0>(row + __float_as_int(ew[TAPS]), v);""")],
+    "no window loads": [(_LOAD_RUN, """#pragma unroll
+      for (int k = 0; k < kValues; ++k)
+        v[k] = __int_as_float(__float_as_int(ew[TAPS + 1]) + k);""")],
+    "no entry loads": [(_ENTRY, """        const float4 e4 = make_float4(
+            0.5f, 0.25f, __int_as_float(c), __int_as_float(c & 7));""")],
+}
+
+
+def ablate() -> dict:
+    """K4 built as it is and with one part of its (direction, channel) step
+    cut out (``ABLATIONS``), timed in turns at 64 and 256 mics f32 on the
+    default profile's heatmap: what each part costs."""
+    import ctypes
+
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+    from beamforming_lk_tpu_torch.ops import nvcc
+
+    paths = nvcc.build_all([_variant(f"das_beam_a{i}", edits, cd._SOURCE)
+                            for i, edits in enumerate(ABLATIONS.values())])
+    real = cd._library()
+    libs = {}
+    for label, path in zip(ABLATIONS, paths):
+        lib = ctypes.CDLL(path)
+        lib.das_beam_launch.argtypes = real.das_beam_launch.argtypes
+        lib.das_beam_launch.restype = ctypes.c_int
+        libs[label] = lib
+    ops = {ch: cs.das_operands(ch, "cuda") for ch in (64, 256)}
+    times = {label: {ch: [] for ch in ops} for label in libs}
+    for label in list(libs) + list(libs)[::-1]:
+        cd._library = lambda lib=libs[label]: lib
+        for ch, (model, stack) in ops.items():
+            times[label][ch].append(cs._cuda_ms(lambda: cd.das_beam(
+                stack[0], model.shift, model.tap_weights,
+                span=model.shift_range), 50))
+    cd._library = lambda: real
+    out = {}
+    for label, per in times.items():
+        out[label] = {f"{ch} float32": statistics.mean(v) for ch, v in per.items()}
+        print(f"K4 {label:18s}: " + ", ".join(
+            f"{ch} mics {statistics.mean(v):.4f} ms (runs {v})"
+            for ch, v in per.items()), flush=True)
+    return out
+
+
 def _device_columns(prof, n_blocks: int) -> dict:
-    """Device busy ms, kernels and idle share per block from a profile."""
+    """Device busy ms, the swarm kernels' (K0-K2) and the DAS beam's (K4)
+    ms, kernels and idle share per block from a profile."""
     from torch.autograd import DeviceType
 
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -178,10 +221,10 @@ def _device_columns(prof, n_blocks: int) -> dict:
     busy += cur_e - cur_s
     window = max(e for _, e in spans) - spans[0][0]
     kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
-    swarm = sum(e.time_range.elapsed_us() for e in ev
-                if "swarm_" in e.name or "monopulse_chain" in e.name)
-    return {"device_busy_ms": busy / 1e3 / n_blocks,
-            "swarm_kernel_ms": swarm / 1e3 / n_blocks,
+    named = {key: sum(e.time_range.elapsed_us() for e in ev
+                      if any(n in e.name for n in names)) / 1e3 / n_blocks
+             for key, names in KERNEL_NAMES.items()}
+    return {"device_busy_ms": busy / 1e3 / n_blocks, **named,
             "kernels_per_block": len(kernels) / n_blocks,
             "idle_share": 1.0 - busy / window}
 
@@ -194,18 +237,19 @@ def _run(pipe, blocks, replay: bool):
     return out
 
 
-def profile() -> dict:
+def _profile(cfg, modes, n_latency: int) -> dict:
+    """The profile columns of ``cfg`` at 64 and 256 mics for each mode
+    ("live": ``process_block``; "replay": ``process_blocks``), then the
+    latency over ``n_latency`` live blocks after 24 warm ones."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from beamforming_lk_tpu_torch import Config, realtime
     from beamforming_lk_tpu_torch.app import AwpuPipeline
 
-    cfg = realtime(Config())
     out = {}
     for ch in (64, 256):
-        for mode in ("live", "replay"):
+        for mode in modes:
             pipe = AwpuPipeline(cfg, channels=ch, seed=0, device="cuda")
             blocks = cs._plane_wave_blocks(pipe, cfg, ch, "cuda")
             replay = mode == "replay"
@@ -230,16 +274,102 @@ def profile() -> dict:
         pipe = AwpuPipeline(cfg, channels=ch, seed=0, device="cuda")
         blocks = cs._plane_wave_blocks(pipe, cfg, ch, "cuda")
         lat = []
-        for i in range(24 + 1200):
+        for i in range(24 + n_latency):
             t = time.perf_counter()
             pipe.process_block(blocks[i % len(blocks)])
             torch.cuda.synchronize()
             if i >= 24:
                 lat.append((time.perf_counter() - t) * 1e3)
         med, p99 = float(np.median(lat)), float(np.percentile(lat, 99))
-        out[f"latency {ch}"] = {"median_ms": med, "p99_ms": p99, "blocks": 1200}
-        print(f"latency {ch:3d} mics over 1200 blocks: median {med:.4f} ms, "
-              f"p99 {p99:.4f} ms (budget {cs.BUDGET_MS:.2f} ms)", flush=True)
+        out[f"latency {ch}"] = {"median_ms": med, "p99_ms": p99,
+                                "blocks": n_latency}
+        print(f"latency {ch:3d} mics over {n_latency} blocks: median {med:.4f} "
+              f"ms, p99 {p99:.4f} ms (budget {cs.BUDGET_MS:.2f} ms)", flush=True)
+    return out
+
+
+def profile() -> dict:
+    from beamforming_lk_tpu_torch import Config, realtime
+
+    return _profile(realtime(Config()), ("live", "replay"), 1200)
+
+
+def default() -> dict:
+    return _profile(cs.default_config(), ("live",), 1008)
+
+
+def _load_other(root: str, module: str):
+    """``beamforming_lk_tpu_torch/ops/<module>.py`` of the checkout at
+    ``root``, loaded under another name: its kernel source is that
+    checkout's, its imports of the package this tree's."""
+    import importlib.util
+
+    path = os.path.join(root, "beamforming_lk_tpu_torch", "ops", f"{module}.py")
+    spec = importlib.util.spec_from_file_location(f"other_{module}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def versus(root: str) -> dict:
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import nvcc
+
+    other = {"ctk": _load_other(root, "cuda_tracker"),
+             "cd": _load_other(root, "cuda_das")}
+    t0 = time.perf_counter()
+    nvcc.build_all([("swarm_chain", [ctk._SOURCE]), ("das_beam", [cd._SOURCE]),
+                    ("swarm_chain", [other["ctk"]._SOURCE]),
+                    ("das_beam", [other["cd"]._SOURCE])])
+    print(f"built both trees' kernels in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    mods = {"other": other, "this": {"ctk": ctk, "cd": cd}}
+    out = {}
+    for ch, compute in SHAPES:
+        xyz, bp, rows, mask, ckw = cs.monopulse_operands(ch, compute, "cuda")
+        act = torch.as_tensor(mask.astype(np.float32), device="cuda")
+        one = (rows[:, cs.N_TRACKERS:cs.N_TRACKERS + 1].contiguous(),
+               torch.ones((3, 1), device="cuda"))
+        model, stack = cs.das_operands(ch, "cuda")
+        dkw = dict(span=model.shift_range, compute=compute)
+        fir = cs.monopulse_operands(ch, compute, "cuda", "fir")
+        fir_act = torch.as_tensor(fir[3].astype(np.float32), device="cuda")
+        fir_model, fir_stack = cs.das_operands(ch, "cuda", "fir")
+        ops, kw = cs.chain_operands(ch, compute, "cuda")
+        cops, ckw2 = cs.chunk_operands(ch, compute, "cuda")
+        calls = {
+            "K0 26 rows": lambda m: m["ctk"].monopulse_chain(xyz, bp, rows, act, **ckw),
+            "K0 listener": lambda m: m["ctk"].monopulse_chain(xyz, bp, *one, **ckw),
+            "K4 1 window": lambda m: m["cd"].das_beam(
+                stack[0], model.shift, model.tap_weights, **dkw),
+            "K4 8 windows": lambda m: m["cd"].das_beam(
+                stack, model.shift, model.tap_weights, **dkw),
+            "K0 FIR": lambda m: m["ctk"].monopulse_chain(
+                *fir[:3], fir_act, **fir[4]),
+            "K4 FIR": lambda m: m["cd"].das_beam(
+                fir_stack[0], fir_model.shift, fir_model.tap_weights, **dkw),
+            "K1": lambda m: m["ctk"].swarm_chain(*ops, **kw),
+            "K2": lambda m: m["ctk"].swarm_chunk(*cops, **ckw2),
+        }
+        for name, call in calls.items():
+            a, b = call(mods["other"]), call(mods["this"])
+            a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+            equal = all(torch.equal(x, y) for x, y in zip(a, b))
+            runs = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                n = 10 if name == "K2" else 50
+                runs[who].append(cs._cuda_ms(lambda: call(mods[who]), n))
+            row = {"bitwise_equal": equal, **{
+                f"{who}_ms": statistics.mean(v) for who, v in runs.items()},
+                "runs": runs}
+            out[f"{name} {ch} {compute}"] = row
+            print(f"{name:12s} {ch:3d} mics {compute:8s}: bitwise equal {equal}; "
+                  f"other {row['other_ms']:.4f} ms, this {row['this_ms']:.4f} ms "
+                  f"({row['other_ms'] / row['this_ms']:.2f}x; runs {runs})",
+                  flush=True)
     return out
 
 
@@ -249,15 +379,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("perf_swarm: no CUDA device; this runs on the card")
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    runs = {"clusters": clusters, "numerics": numerics, "phases": phases,
-            "profile": profile}
-    if what not in runs:
+    runs = {"clusters": clusters, "phases": phases, "profile": profile,
+            "default": default, "versus": versus, "ablate": ablate}
+    if what not in runs or (what == "versus") != (len(sys.argv) == 3):
         raise SystemExit(__doc__)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs._card_line()
     print(card, flush=True)
-    out = runs[what]()
+    out = runs[what](*sys.argv[2:])
     print(json.dumps({"card": card, what: out}), flush=True)
     return 0
 

@@ -145,3 +145,75 @@ def test_mimo_power_and_converted_model_match_jax(interp):
         got = mm.mimo_power(torch.as_tensor(windows[0]), m, n_active=62.0)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     assert mm.mimo_power(torch.as_tensor(windows), model).shape == (1, 64)
+
+
+def _beam_runs(window, shift, tapw, n):
+    """beam[d, t] for t < n from a window whose column 0 is sample 0,
+    channel by channel then tap by tap: each sample depends only on its
+    own columns."""
+    beam = torch.zeros((shift.shape[0], n), dtype=torch.float32)
+    cols = torch.arange(n)
+    sh = shift.to(torch.long)
+    for c in range(window.shape[0]):
+        for j in range(tapw.shape[-1]):
+            beam = beam + tapw[:, c, j, None] * window[c][sh[:, c, None] + j + cols]
+    return beam
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+def test_beam_over_direction_tiles_and_sample_runs(interp):
+    """The DAS-beam kernel splits the beam into tiles of 32 directions and,
+    inside a tile, runs of 8 consecutive samples per lane, each run read
+    from the 8 + S - 1 window columns that start at its first sample.  On a
+    chunk's strided ring view, the tiles x runs, each computed from its own
+    columns alone, assemble to the whole beam bit for bit (so the column
+    offsets shift + j + t are right at the edge of every run), and the
+    whole beam is the twin's (within 1e-5 of the peak: other order)."""
+    windows, _, _, shift, tapw = _inputs(interp, n_windows=2)
+    hist = torch.as_tensor(np.concatenate([windows[0][:, :T], windows[1]], axis=1))
+    view = hist.unfold(-1, S + T, T).movedim(-2, 0)[1]       # [C, S+T], strided
+    assert not view.is_contiguous()
+    shift_t, tapw_t = torch.as_tensor(shift), torch.as_tensor(tapw)
+    plan = cd.das_beam_plan(1, shift.shape[0], 64, T, S, tapw.shape[-1])
+    dirs, run = plan["dirs_per_block"], plan["run"]
+    whole = _beam_runs(view, shift_t, tapw_t, T)
+    tiles = []
+    for d0 in range(0, shift.shape[0], dirs):
+        sh, w = shift_t[d0:d0 + dirs], tapw_t[d0:d0 + dirs]
+        tiles.append(torch.cat([_beam_runs(view[:, t0:t0 + run + S - 1], sh, w, run)
+                                for t0 in range(0, T, run)], dim=1))
+    assert torch.equal(torch.cat(tiles), whole)
+    want = cd.das_beam(view, shift_t, tapw_t, span=S)
+    torch.testing.assert_close(whole, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [64, 256])
+def test_das_beam_launch_plan(channels, compute, interp):
+    """The DAS-beam kernel's launch plan for the default profile's 64 x 64
+    grid (D = 4096), one window and a stack of 8: blocks of 1024 threads
+    over 128 tiles of 32 directions, one direction a warp, lanes of 8
+    consecutive samples covering T = 256; channel tiles of 32 rows of
+    T + S padded columns, double-buffered, and the tile's (direction,
+    channel) entries, one a thread; within the 227 KB a block can use
+    (at every tap count up to 16).  The window is staged in
+    f32 whatever the product's type, so the plan depends on neither the
+    channel count nor the compute type."""
+    taps = dl.LINEAR_TAPS if interp == "linear" else tcfg.DspConfig().fir_taps
+    for k in (1, 8):
+        plan = cd.das_beam_plan(k, 4096, channels, T, S, taps)
+        assert plan["grid"] == (128, k, 1) and plan["threads"] == 1024
+        assert plan["dirs_per_block"] == 32 == plan["threads"] // 32
+        assert plan["run"] * 32 == plan["sample_tile"] == T
+        assert plan["row_floats"] == (T + S) * 9 // 8
+        assert plan["entry_floats"] >= taps + 2 and plan["entry_floats"] % 4 == 0
+        assert 32 * plan["channel_tile"] == plan["threads"]
+        assert plan["smem_bytes"] == (
+            2 * plan["channel_tile"] * plan["row_floats"] * 4
+            + 32 * plan["channel_tile"] * plan["entry_floats"] * 4)
+        assert plan["smem_bytes"] <= 232448
+    assert cd.das_beam_plan(1, 4096, channels, T, S, 16)["smem_bytes"] <= 232448
+    assert cd.das_beam_plan(1, 4096, channels, T, S, taps) == cd.das_beam_plan(
+        1, 4096, 64 if channels == 256 else 256, T, S, taps)

@@ -122,26 +122,29 @@ def test_twin_passes_state0_through_never_active_rows():
 
 def _split(split):
     """Row groups of P = 27 rows laid out trackers (10) | listener | seekers
-    (16): trackers | listener and seekers, or the rows the swarm kernels'
-    cluster deals to each CTA, r mod N."""
+    (16): trackers | listener and seekers, the rows the swarm kernels'
+    cluster deals to each CTA, r mod N, or the monopulse-chain kernel's
+    one row a CTA (r mod P)."""
     if split == "trackers|seekers":
         return [np.arange(10), np.arange(10, P)]
-    n = int(split.split()[-1])
+    n = P if split == "one row a CTA" else int(split.split()[-1])
     return [np.arange(cta, P, n) for cta in range(n)]
 
 
 @pytest.mark.parametrize("interp", ["linear", "fir"])
-@pytest.mark.parametrize("split", ["trackers|seekers", "r mod 8", "r mod 16"])
+@pytest.mark.parametrize("split", ["trackers|seekers", "r mod 8", "r mod 16",
+                                   "one row a CTA"])
 def test_rows_are_independent(split, interp):
     """A row's sub-step reads only its own state and the window, so any
-    split of the rows gives the same numbers.  Two splits rest on it: the
+    split of the rows gives the same numbers.  Three splits rest on it: the
     unfused swarm step runs the seekers' step in sub-step 0 of the
-    trackers' chain (the JAX package steps them after it), and the swarm
+    trackers' chain (the JAX package steps them after it), the swarm
     kernels' cluster runs row r's sub-steps of an iteration on CTA r mod N
-    with no barrier between CTAs.  Trackers step in all 5 sub-steps, the
-    listener in the first 3 (its refine budget), seekers in sub-step 0;
-    each group of rows run alone gives exactly those rows of the run on
-    all of them."""
+    with no barrier between CTAs, and the monopulse-chain kernel runs each
+    row's whole chain on a CTA of its own.  Trackers step in all 5
+    sub-steps, the listener in the first 3 (its refine budget), seekers in
+    sub-step 0; each group of rows run alone gives exactly those rows of
+    the run on all of them."""
     pw, rows, mask, kw, _ = _setup(2, interp)
     act = np.zeros((5, P), bool)
     act[:, :10] = True
@@ -167,3 +170,91 @@ def test_listener_refine_chain():
         one[0], one[1], one[6], one[7], jnp.asarray(act), interpret=True, **kw)
     np.testing.assert_allclose(got, np.stack([np.asarray(o) for o in out]),
                                rtol=0, atol=1e-5)
+
+
+def _probe_stencils(pw, rows, mask, kw):
+    """The bandpassed window [C, span+n_out] and the stencils (shift
+    [4R, C], weights [4R, C, taps]) of the 4 probes around every row, as
+    the twin builds them."""
+    k = ctk._consts("quadrant", kw["taps"], kw["theta_limit"])
+    rt = torch.as_tensor(rows)
+    ux, uy, uz = ctk._probe_dirs(rt[0], rt[1], rt[7], k)
+    shift, w = ctk._stencil(
+        ux.reshape(-1), uy.reshape(-1), uz.reshape(-1),
+        ctk.pack_geometry(PTS, SPM, channel_mask=mask), kw["span"], kw["taps"],
+        kw["interp"], DspConfig().fir_phases, k["blackman"])
+    return ctk.bandpass_window(torch.as_tensor(np.ascontiguousarray(pw))), shift, w
+
+
+def _beam_samples(win, shift, w, n):
+    """beam[r, t] for t < n from a window whose column 0 is sample 0,
+    summed channel by channel then tap by tap (the kernel's order, one
+    sample at a time): each sample depends only on its own columns."""
+    beam = torch.zeros((shift.shape[0], n), dtype=torch.float32)
+    cols = torch.arange(n)
+    for c in range(win.shape[0]):
+        for j in range(w.shape[-1]):
+            x = win[c][shift[:, c, None] + j + cols]
+            beam = beam + w[:, c, j, None] * x
+    return beam
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+def test_probe_beam_over_sample_segments(interp):
+    """The chain kernel splits a probe beam's n_out = T - 2 samples over
+    the probe's warps by time: 64-sample segments, each read from the
+    n + span - 1 window columns that start at its first sample.  The
+    segments, each computed from its own columns alone, concatenate to the
+    whole beam bit for bit (so the column offsets shift + j + t are right
+    at every segment edge), and the whole beam is the twin's gather
+    (within 1e-5 of the peak: the two sum in other orders).  The
+    power reduced in the kernel's lane order (lane l sums samples l + 32 i
+    in i order, then the xor butterfly of warp_sum) agrees with the twin's
+    power to within f32 rounding of n_out terms."""
+    pw, rows, mask, kw, _ = _setup(4, interp)
+    win, shift, w = _probe_stencils(pw, rows[:, :6], mask, kw)
+    span, n_out = kw["span"], win.shape[1] - kw["span"]
+    whole = _beam_samples(win, shift, w, n_out)
+    seg = ctk.CHAIN_SEGMENT
+    parts = [_beam_samples(win[:, t0:min(t0 + seg, n_out) + span - 1], shift, w,
+                           min(seg, n_out - t0))
+             for t0 in range(0, n_out, seg)]
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+    torch.testing.assert_close(whole, ctk._gather_beams(win, shift, w, n_out),
+                               rtol=1e-5, atol=1e-5 * float(whole.abs().max()))
+    b = whole.numpy().astype(np.float32)
+    lanes = np.zeros((b.shape[0], 32), np.float32)
+    for t in range(n_out):
+        lanes[:, t % 32] = lanes[:, t % 32] + b[:, t] * b[:, t]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ o]
+    assert np.all(lanes == lanes[:, :1])            # every lane holds the sum
+    twin = (whole * whole).sum(dim=1).numpy()
+    np.testing.assert_allclose(lanes[:, 0], twin,
+                               rtol=n_out * np.finfo(np.float32).eps)
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [64, 256])
+def test_chain_launch_plan(channels, compute, interp):
+    """The chain kernel's launch plan at the deployment shapes: one CTA of
+    512 threads per row (26 rows of the tracker's call, 1 of the MISO
+    step), 4 warps a probe, the window staged whole in each CTA's shared
+    memory except the f32 window at 256 mics (325 KB), read from L2; every
+    plan within the 227 KB a block can use."""
+    dsp = DspConfig()
+    pts = ant.multi_array_cluster(channels)
+    taps = dl.LINEAR_TAPS if interp == "linear" else dsp.fir_taps
+    span = dl.probe_span(pts, SPM, taps, dsp.shift_range)
+    elem = 4 if compute == "float32" else 2
+    for rows in (26, 1):
+        plan = ctk.monopulse_chain_plan(channels, rows, dsp.block_size, span,
+                                        taps, elem)
+        assert plan["grid"] == rows and plan["threads"] == 512
+        assert plan["warps_per_probe"] == 4
+        assert plan["window_bytes"] >= channels * (span + dsp.block_size - 2) * elem
+        assert plan["staged"] == (channels == 64 or compute == "bfloat16")
+        assert plan["smem_bytes"] <= ctk.MAX_SMEM == 232448
+        assert plan["smem_bytes"] - plan["staged"] * plan["window_bytes"] >= (
+            4 * channels * (taps + 1) * 4 + 4 * (dsp.block_size - 2) * 4)
