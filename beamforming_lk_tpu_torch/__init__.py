@@ -1,13 +1,21 @@
 """beamforming_lk_tpu_torch — the PyTorch + CUDA port of beamforming_lk_tpu.
 
 Same layout and names as the JAX package (``ops``, ``io``, ``models``,
-``app``), written for PyTorch on an NVIDIA H100.  The port carries the live
-per-block step (``app.awpu.AwpuPipeline.process_block`` under
-``config.realtime``) and the chunked replay (``process_blocks``).  Its
-hand-written kernels are the per-block and K-block swarm updates
-(``csrc/swarm_chain.cu``) and the heatmap's power stage
-(``csrc/power_matmul.cu``).  The JAX package stays beside it as the
-reference; this package imports no JAX.
+``app``), written for PyTorch on an NVIDIA H100.  The port carries
+``app.awpu.AwpuPipeline`` in the realtime profile (``config.realtime``:
+the live step ``process_block`` and the chunked replay ``process_blocks``),
+in the default profile (``Config()``: the dense heatmap, the unfused
+tracker and MISO step) and with the tracker or MISO off.  Its hand-written
+CUDA kernels, one per TPU kernel of the JAX package:
+
+- ``csrc/swarm_chain.cu``: the monopulse chain K0, the per-block swarm
+  update K1 and the K-block chunk K2;
+- ``csrc/power_matmul.cu``: the heatmap's power stage K3
+  (``power_path="pallas"``);
+- ``csrc/das_beam.cu``: the dense heatmap's beam K4.
+
+The JAX package stays beside it as the reference; this package imports no
+JAX.
 """
 
 __version__ = "0.1.0"

@@ -357,12 +357,14 @@ def _power_stage(b2_re, b2_im, model: FftHeatmapModel, mm_f32):
     f_half = b2_re.shape[-1]
     if model.power_path == "pallas":
         dtype = _compute_dtype(model)
-        # einsum may hand back a permuted layout; the kernel reads rows.
-        powers = power_matmul(
-            b2_re.reshape(-1, f_half).to(dtype).contiguous(),
-            b2_im.reshape(-1, f_half).to(dtype).contiguous(),
-            model.pow_ri[:f_half], model.pow_ri[f_half:],
-        )
+        # The kernel reads rows from a 16-byte aligned start; einsum may hand
+        # back a permuted layout or a view into a larger product.
+        def rows(x):
+            x = x.reshape(-1, f_half).to(dtype).contiguous()
+            return x if x.data_ptr() % 16 == 0 else x.clone()
+
+        powers = power_matmul(rows(b2_re), rows(b2_im),
+                              model.pow_ri[:f_half], model.pow_ri[f_half:])
     else:
         b2_ri = torch.cat([b2_re, b2_im], dim=-1)           # [..., Dy, Dx, 2F]
         bp = mm_f32("...yxf,ft->...yxt", b2_ri, model.pow_ri)
@@ -416,13 +418,72 @@ def power_matmul_reference(a_re, a_im, pow_cos, pow_msin):
     return (f(a_re) @ f(pow_cos) + f(a_im) @ f(pow_msin)).square().sum(-1)
 
 
+_TILE_ROWS, _TP = 64, 256
+_CTA_COLS = 128          # bf16: columns of one CTA of a 2-CTA cluster
+_SMS = 132               # an H100 SXM's SMs: the bf16 grid is one CTA per SM
+_MAX_SMEM = 232_448      # shared memory a block may use on Hopper
+
+
+def power_matmul_plan(r: int, f: int, tp: int, dtype) -> dict:
+    """Launch plan of the power-stage kernel for ``r`` rows, ``f`` bins,
+    ``tp`` columns and the planes' ``dtype`` (``csrc/power_matmul.cu``
+    computes the same and refuses another).  Both paths read ``[a_re |
+    a_im]`` by ``[pow_cos ; pow_msin]`` as one product over ``k_pad``
+    (2F zero-padded to a multiple of 16), the im plane from ``im_k0``; rows
+    in tiles of ``tile_rows`` (``tiles``), each tile's span of ``span_bytes``
+    per plane.
+
+    - bf16: ``cluster`` = 2 CTAs of ``cta_cols`` columns each, persistent
+      over the tiles (``grid`` CTAs of ``threads``, at most one per SM); B
+      resident as bf16; a ring of ``slots`` raw slots of ``stage_rows``
+      rows of both planes (``stage_bytes`` each, one bulk copy a plane)
+      repacked into ``a_tiles`` A tiles; ``im_k0`` = F rounded up to 8.
+    - f32: one CTA per tile and all 256 columns (``grid`` = ``tiles``),
+      k-tiles of ``k_tile`` double-buffered (``stage_bytes`` each);
+      ``im_k0`` = F.
+
+    ``smem_bytes`` is the kernel's shared-memory total.  Raises
+    ``ValueError`` for a shape the kernel does not take."""
+    if r < 1 or f < 1:
+        raise ValueError(f"power_matmul needs rows and bins, got [{r}, {f}]")
+    if tp != _TP:
+        raise ValueError(f"power_matmul takes Tp = {_TP} columns, got {tp}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"power_matmul takes float32 or bfloat16, got {dtype}")
+    tiles = -(-r // _TILE_ROWS)
+    if dtype == torch.bfloat16:
+        im_k0 = -(-f // 8) * 8
+        k_pad = -(-2 * im_k0 // 16) * 16
+        stage_rows, slots = _TILE_ROWS // 4, 5
+        plane = -(-stage_rows * f * 2 // 16) * 16
+        smem = (_CTA_COLS * k_pad * 2 + 2 * _TILE_ROWS * k_pad * 2
+                + slots * 2 * plane + 2 * 2 * _TILE_ROWS * 4 + (4 + 2 * slots) * 8)
+        cluster = tp // _CTA_COLS
+        plan = dict(cluster=cluster, cta_cols=_CTA_COLS,
+                    grid=cluster * min(tiles, _SMS // cluster), threads=14 * 32,
+                    a_tiles=2, stage_rows=stage_rows, slots=slots,
+                    stage_bytes=2 * plane, span_bytes=_TILE_ROWS * f * 2)
+    else:
+        k_tile = 16
+        im_k0, k_pad = f, -(-2 * f // k_tile) * k_tile
+        stage = (k_tile * (_TILE_ROWS + 4) + k_tile * tp) * 4
+        smem = 2 * stage + 4 * _TILE_ROWS * 4
+        plan = dict(cluster=1, k_tile=k_tile, grid=tiles, threads=256,
+                    stage_bytes=stage, a_tiles=2,
+                    span_bytes=_TILE_ROWS * f * 4)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"F = {f} needs {smem} bytes of shared memory")
+    return dict(plan, tile_rows=_TILE_ROWS, tiles=tiles,
+                k_pad=k_pad, im_k0=im_k0, smem_bytes=smem)
+
+
 @functools.cache
 def _library():
     from beamforming_lk_tpu_torch.ops import nvcc
 
     lib = ctypes.CDLL(nvcc.build("power_matmul", [_SOURCE]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.power_matmul_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.power_matmul_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr, ptr]
     lib.power_matmul_launch.restype = i32
     lib.power_matmul_error_string.argtypes = [i32]
     lib.power_matmul_error_string.restype = ctypes.c_char_p
@@ -432,27 +493,36 @@ def _library():
 def power_matmul(a_re, a_im, pow_cos, pow_msin):
     """Powers [R] f32 of steered spectra planes ``a_re``/``a_im`` [R, F]
     (f32 or bf16) against the power matrix halves ``pow_cos``/``pow_msin``
-    [F, Tp], which are rounded to ``a_re``'s dtype as the JAX package's
-    ``power_matmul_pallas`` does.  The [R, Tp] beam never reaches device
-    memory.  CPU tensors take :func:`power_matmul_reference`;
-    ``power_matmul.launches`` counts kernel launches."""
+    [F, Tp] f32, which are rounded to ``a_re``'s dtype (round to nearest
+    even) as the JAX package's ``power_matmul_pallas`` does; the kernel
+    rounds them as it stages them, so a call is one launch.  The [R, Tp]
+    beam never reaches device memory.  Every operand is contiguous and
+    starts 16-byte aligned (``a_re[1:]`` does not), on every device.  CPU
+    tensors take :func:`power_matmul_reference`; ``power_matmul.launches``
+    counts kernel launches."""
     device = a_re.device
     dtype = a_re.dtype
     r, f = a_re.shape
     tp = pow_cos.shape[-1]
-    pc, ps = pow_cos.to(dtype).contiguous(), pow_msin.to(dtype).contiguous()
     check_operand("a_re", a_re, device, (torch.float32, torch.bfloat16), (r, f))
     check_operand("a_im", a_im, device, (dtype,), (r, f))
-    check_operand("pow_cos", pc, device, (dtype,), (f, tp))
-    check_operand("pow_msin", ps, device, (dtype,), (f, tp))
+    check_operand("pow_cos", pow_cos, device, (torch.float32,), (f, tp))
+    check_operand("pow_msin", pow_msin, device, (torch.float32,), (f, tp))
+    for name, t in (("a_re", a_re), ("a_im", a_im), ("pow_cos", pow_cos),
+                    ("pow_msin", pow_msin)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+    plan = power_matmul_plan(r, f, tp, dtype)
     if device.type == "cpu":
-        return power_matmul_reference(a_re, a_im, pc, ps)
+        return power_matmul_reference(a_re, a_im, pow_cos, pow_msin)
     require_cuda("power_matmul", device)
     out = torch.empty((r,), dtype=torch.float32, device=device)
     lib = _library()
     err = lib.power_matmul_launch(
-        a_re.data_ptr(), a_im.data_ptr(), pc.data_ptr(), ps.data_ptr(),
+        a_re.data_ptr(), a_im.data_ptr(), pow_cos.data_ptr(), pow_msin.data_ptr(),
         out.data_ptr(), r, f, tp, int(dtype == torch.bfloat16),
+        (ctypes.c_int * 6)(plan["grid"], plan["threads"], plan["cluster"],
+                           plan["tile_rows"], plan["k_pad"], plan["smem_bytes"]),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err:

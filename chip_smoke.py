@@ -15,7 +15,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    12 launches of K1, at the same shapes, with times (K1 and K2 each run
    as one thread block cluster, whose size is printed after the build);
 5. the power-stage kernel (K3) against its twin at the replay shapes
-   (16 384 and 32 768 rows, F = 161, Tp = 256, bf16 and f32), with times;
+   (16 384 and 32 768 rows and a ragged 16 397, F = 161, Tp = 256, bf16
+   and f32, pc/ps f32 as the path passes them), with its launch plan, its
+   time, the twin's, ``torch.matmul``'s alone and the fused path's;
 6. a small end-to-end check: 9 blocks through the f32 profile on the card
    and on the CPU (the twin), outputs compared;
 7. the live slice: ``AwpuPipeline(realtime(Config()), channels=64|256)`` on
@@ -488,17 +490,13 @@ def compare_chunk(channels: int, compute: str, device):
                 bound_by=bound_by, library_ms=None)
 
 
-def compare_power(rows: int, compute: str, device):
-    """The power-stage kernel (``power_matmul``) against its twin on
-    [rows, 161] x [161, 256] operands.  Both widen the same (rounded)
-    inputs to f32 and differ only in summation order: powers within 2e-5
-    of the largest.  Returns the max abs error ``err``, the kernel's and
-    twin's ms, the bound, and the ms of the library's product alone
-    (``torch.matmul`` of ``[a_re | a_im]`` by ``[pow_cos ; pow_msin]``,
-    which leaves out the square-sum)."""
-    import torch
+POWER_ROWS = (16384, 32768, 16397)   # 4 and 8 heatmaps of 64 x 64; a ragged tail
 
-    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+def power_operands(rows: int, compute: str, device):
+    """[rows, 161] planes in ``compute`` and the [161, 256] f32 power
+    matrix halves, as ``_power_stage`` passes them to ``power_matmul``."""
+    import torch
 
     g = torch.Generator(device=device).manual_seed(rows)
     dtype = getattr(torch, compute)
@@ -506,12 +504,38 @@ def compare_power(rows: int, compute: str, device):
                   for _ in range(2))
     pc, ps = (0.05 * torch.randn((161, 256), generator=g, device=device)
               for _ in range(2))
+    return a_re, a_im, pc, ps
+
+
+def compare_power(rows: int, compute: str, device):
+    """The power-stage kernel (``power_matmul``) against its twin on
+    :func:`power_operands`.  Both take the same bf16-rounded (or f32)
+    inputs with f32 products and differ only in summation order: powers
+    within 2e-5 of the largest.  Prints the launch plan.  Returns the max
+    abs error ``err``, the kernel's and twin's ms (one call each, the
+    rounding of pc/ps included), the bound, the ms of the library's product
+    alone (``torch.matmul`` of ``[a_re | a_im]`` by ``[pow_cos ; pow_msin]``
+    in the planes' type, without the square-sum) and of the fused path on
+    the same rows (``fused_ms``: the cat, the einsum of the rounded operands
+    in f32, the square-sum)."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    dtype = getattr(torch, compute)
+    a_re, a_im, pc, ps = power_operands(rows, compute, device)
+    plan = fd.power_matmul_plan(rows, 161, 256, dtype)
+    print(f"power_matmul plan {rows:5d} rows {compute:8s}: grid {plan['grid']} x "
+          f"{plan['threads']} threads, cluster {plan['cluster']}, {plan['tiles']} "
+          f"tiles of {plan['tile_rows']} rows, K {plan['k_pad']} (im from "
+          f"{plan['im_k0']}), a ring of {plan['a_tiles']} A tiles, "
+          f"{plan['smem_bytes']} bytes of shared memory", flush=True)
     got = fd.power_matmul(a_re, a_im, pc, ps)
     want = fd.power_matmul_reference(a_re, a_im, pc, ps)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
-    if not (torch.isfinite(got).all() and rel <= 2e-5):
+    if not (got.shape == want.shape and torch.isfinite(got).all() and rel <= 2e-5):
         raise AssertionError(f"power kernel vs twin {rel:.3g} > 2e-5 at "
                              f"{rows} rows {compute}")
     f, t_len = pc.shape
@@ -521,14 +545,23 @@ def compare_power(rows: int, compute: str, device):
     ms = _cuda_ms(lambda: fd.power_matmul(a_re, a_im, pc, ps), 50)
     plain_ms = _cuda_ms(lambda: fd.power_matmul_reference(a_re, a_im, pc, ps), 50)
     a_cat = torch.cat([a_re, a_im], dim=1)
-    w_cat = torch.cat([pc, ps], dim=0).to(dtype)
+    pow_ri = torch.cat([pc, ps], dim=0)
+    w_cat = pow_ri.to(dtype)
     library_ms = _cuda_ms(lambda: torch.matmul(a_cat, w_cat), 50)
+
+    def fused():
+        bp = torch.einsum("rf,ft->rt", torch.cat([a_re, a_im], dim=1).float(),
+                          pow_ri.to(dtype).float())
+        return torch.sum(bp * bp, dim=-1)
+
+    fused_ms = _cuda_ms(fused, 50)
     print(f"power kernel vs twin {rows:5d} rows {compute:8s}: max abs {err:.3g}, "
           f"{rel:.3g} of the largest (tol 2e-5); kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms, torch.matmul alone {library_ms:.4f} ms; bound "
-          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+          f"{plain_ms:.4f} ms, torch.matmul alone {library_ms:.4f} ms, fused "
+          f"path {fused_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}, "
+          f"{bound_ms / ms:.1%} of it)", flush=True)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, fused_ms=fused_ms)
 
 
 def _source_cell(cfg):
@@ -1175,7 +1208,7 @@ def main() -> int:
         for compute in ("bfloat16", "float32"):
             k2[ch, compute] = compare_chunk(ch, compute, "cuda")
     k3 = {}
-    for rows in (16384, 32768):
+    for rows in POWER_ROWS:
         for compute in ("bfloat16", "float32"):
             k3[rows, compute] = compare_power(rows, compute, "cuda")
     end_to_end_check("cuda")

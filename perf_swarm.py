@@ -5,9 +5,10 @@
     python3 perf_swarm.py phases     # K1 with fewer iterations and sub-steps
     python3 perf_swarm.py profile    # realtime live and replay at 64 and 256 mics
     python3 perf_swarm.py default    # the default profile at 64 and 256 mics
-    python3 perf_swarm.py versus DIR # K0, K4, K1 and K2 of a checkout at DIR
+    python3 perf_swarm.py versus DIR # K3, K0, K4, K1 and K2 of a checkout at DIR
                                      # against this tree's, in turns
     python3 perf_swarm.py ablate     # K4 with parts of its inner step cut out
+    python3 perf_swarm.py ablate3    # K3 (bf16) with parts of its work cut out
 
 ``clusters`` builds ``csrc/swarm_chain.cu`` as it is and a copy with the
 cluster size set to 8, holds each against the plain twins (as
@@ -25,9 +26,13 @@ kernels and idle share per block over 48 more, and the per-block latency
 (``process_block`` + synchronize) over 1200 blocks (``default``: 1008).
 ``versus`` loads the kernel wrappers of another checkout of the repo (the
 parent commit, unpacked with ``git archive``), builds its sources beside
-this tree's, and on ``chip_smoke.py``'s operands holds each of its K0,
-K4, K1 and K2 outputs against this tree's for bitwise equality, then
-times the two in turns (other, this, this, other).  ``ablate`` times K4
+this tree's, and on ``chip_smoke.py``'s operands holds its K3 outputs
+against this tree's by their largest difference relative to the largest
+power (16 384 and 32 768 rows, bf16 and f32) and each of its K0, K4, K1
+and K2 outputs for bitwise equality, then times the two in turns (other,
+this, this, other).  ``ablate3`` times K3's bf16 path as built and with
+one part of its work cut out (B staging only, launch only, no products,
+no repack, no A loads, no exchange, products only), in turns.  ``ablate`` times K4
 as built and three copies that each drop one part of a (direction,
 channel) step (the residue switch, the window loads, the entry loads;
 their beams are wrong on purpose), in turns.  Each mode prints the
@@ -202,6 +207,69 @@ def ablate() -> dict:
     return out
 
 
+# Edits of csrc/power_matmul.cu that each drop one part of the bf16 path's
+# work; their powers are wrong, and only their times are read.
+_K3_TILES = "for (int tile = tile0; tile < n_tiles; ++i, tile += n_clusters) {"
+_K3_REPACK = [("""        repack_quarter(raw + s * slot_bytes, L, s_a + b * tile_elems, q * kQuarter,
+                       max(0, min(kQuarter, R - r0)), F, pw, lane);
+""", "")]
+_K3_LOADS = [("        if (bulk)\n", "        if (bulk && R < 0)\n"),
+             ("        mbar_expect(landed + s, 2 * bulk);", "        mbar_expect(landed + s, 0);")]
+_K3_EXCHANGE = [("      if (rank == 0) {\n        mbar_wait", "      if (R < 0) {\n        mbar_wait"),
+                ("      } else {\n        if (i >= 2) mbar_wait(empty_h",
+                 "      } else if (R < 0) {\n        if (i >= 2) mbar_wait(empty_h")]
+K3_ABLATIONS = {
+    "as built": [],
+    "B staging only": [(_K3_TILES, _K3_TILES.replace("tile < n_tiles", "tile < 0")),
+                       ("      for (int u = 0; u < 4 * my_tiles; ++u) {",
+                        "      for (int u = 0; u < 0; ++u) {")],
+    "launch only": [(_K3_TILES, _K3_TILES.replace("tile < n_tiles", "tile < 0")),
+                    ("      for (int u = 0; u < 4 * my_tiles; ++u) {",
+                     "      for (int u = 0; u < 0; ++u) {"),
+                    ("  for (int j = tid; j < 2 * chunks * kCols; j += kStagers) {",
+                     "  for (int j = tid; j < 0; j += kStagers) {")],
+    "no products": [("      const int steps = L.k_pad / 16;", "      const int steps = 1;")],
+    "no repack": _K3_REPACK,
+    "no A loads": _K3_LOADS,
+    "no exchange": _K3_EXCHANGE,
+    "products only": _K3_REPACK + _K3_LOADS + _K3_EXCHANGE,
+}
+
+
+def ablate3() -> dict:
+    """K3's bf16 path built as it is and with one part cut out
+    (``K3_ABLATIONS``), timed in turns at 16 384 and 32 768 rows: what
+    each part costs."""
+    import ctypes
+
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+    from beamforming_lk_tpu_torch.ops import nvcc
+
+    paths = nvcc.build_all([_variant(f"power_matmul_a{i}", edits, fd._SOURCE)
+                            for i, edits in enumerate(K3_ABLATIONS.values())])
+    real = fd._library()
+    libs = {}
+    for label, path in zip(K3_ABLATIONS, paths):
+        lib = ctypes.CDLL(path)
+        lib.power_matmul_launch.argtypes = real.power_matmul_launch.argtypes
+        lib.power_matmul_launch.restype = ctypes.c_int
+        libs[label] = lib
+    ops = {rows: cs.power_operands(rows, "bfloat16", "cuda") for rows in (16384, 32768)}
+    times = {label: {rows: [] for rows in ops} for label in libs}
+    for label in list(libs) + list(libs)[::-1]:
+        fd._library = lambda lib=libs[label]: lib
+        for rows, args in ops.items():
+            times[label][rows].append(cs._cuda_ms(lambda: fd.power_matmul(*args), 50))
+    fd._library = lambda: real
+    out = {}
+    for label, per in times.items():
+        out[label] = {f"{rows} bfloat16": statistics.mean(v) for rows, v in per.items()}
+        print(f"K3 {label:15s}: " + ", ".join(
+            f"{rows} rows {statistics.mean(v):.4f} ms (runs {v})"
+            for rows, v in per.items()), flush=True)
+    return out
+
+
 def _device_columns(prof, n_blocks: int) -> dict:
     """Device busy ms, the swarm kernels' (K0-K2) and the DAS beam's (K4)
     ms, kernels and idle share per block from a profile."""
@@ -316,18 +384,41 @@ def versus(root: str) -> dict:
 
     from beamforming_lk_tpu_torch.ops import cuda_das as cd
     from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
     from beamforming_lk_tpu_torch.ops import nvcc
 
     other = {"ctk": _load_other(root, "cuda_tracker"),
-             "cd": _load_other(root, "cuda_das")}
+             "cd": _load_other(root, "cuda_das"), "fd": _load_other(root, "fft_das")}
     t0 = time.perf_counter()
-    nvcc.build_all([("swarm_chain", [ctk._SOURCE]), ("das_beam", [cd._SOURCE]),
-                    ("swarm_chain", [other["ctk"]._SOURCE]),
-                    ("das_beam", [other["cd"]._SOURCE])])
+    mods = {"other": other, "this": {"ctk": ctk, "cd": cd, "fd": fd}}
+    specs = {}  # one build of each distinct source: equal sources share a target
+    for name, mod in (("swarm_chain", "ctk"), ("das_beam", "cd"), ("power_matmul", "fd")):
+        for tree in mods.values():
+            path = tree[mod]._SOURCE
+            specs.setdefault(open(path, "rb").read(), (name, [path]))
+    nvcc.build_all(list(specs.values()))
     print(f"built both trees' kernels in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    mods = {"other": other, "this": {"ctk": ctk, "cd": cd}}
     out = {}
+    # K3 was redesigned with another summation order: held by its largest
+    # difference relative to the largest power, not bitwise.
+    for rows in (16384, 32768):
+        for compute in ("bfloat16", "float32"):
+            ops = cs.power_operands(rows, compute, "cuda")
+            a, b = (mods[who]["fd"].power_matmul(*ops) for who in ("other", "this"))
+            rel = float((a - b).abs().max() / b.abs().max())
+            runs = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                runs[who].append(cs._cuda_ms(
+                    lambda: mods[who]["fd"].power_matmul(*ops), 50))
+            row = {"max_rel_diff": rel, **{
+                f"{who}_ms": statistics.mean(v) for who, v in runs.items()},
+                "runs": runs}
+            out[f"K3 {rows} {compute}"] = row
+            print(f"K3 {rows:5d} rows {compute:8s}: max difference {rel:.3g} of the "
+                  f"largest; other {row['other_ms']:.4f} ms, this {row['this_ms']:.4f} "
+                  f"ms ({row['other_ms'] / row['this_ms']:.2f}x; runs {runs})",
+                  flush=True)
     for ch, compute in SHAPES:
         xyz, bp, rows, mask, ckw = cs.monopulse_operands(ch, compute, "cuda")
         act = torch.as_tensor(mask.astype(np.float32), device="cuda")
@@ -380,7 +471,8 @@ def main() -> int:
         raise SystemExit("perf_swarm: no CUDA device; this runs on the card")
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     runs = {"clusters": clusters, "phases": phases, "profile": profile,
-            "default": default, "versus": versus, "ablate": ablate}
+            "default": default, "versus": versus, "ablate": ablate,
+            "ablate3": ablate3}
     if what not in runs or (what == "versus") != (len(sys.argv) == 3):
         raise SystemExit(__doc__)
     torch.backends.cuda.matmul.allow_tf32 = False
