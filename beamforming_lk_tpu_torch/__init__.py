@@ -5,7 +5,11 @@ Same layout and names as the JAX package (``ops``, ``io``, ``models``,
 ``app.awpu.AwpuPipeline`` in the realtime profile (``config.realtime``:
 the live step ``process_block`` and the chunked replay ``process_blocks``),
 in the default profile (``Config()``: the dense heatmap, the unfused
-tracker and MISO step) and with the tracker or MISO off.  Its hand-written
+tracker and MISO step) and with the tracker or MISO off, with the
+heatmap's SRP-PHAT and lattice-ordered models, auto-calibration
+(``calibrate``) and checkpoints (``save``, ``restore``); and the fusion of
+several arrays into 3D tracks (``models.fusion.TargetFusion``, with
+``models.kalman``).  Its hand-written
 CUDA kernels, one per TPU kernel of the JAX package:
 
 - ``csrc/swarm_chain.cu``: the monopulse chain K0, the per-block swarm
@@ -25,6 +29,8 @@ from beamforming_lk_tpu_torch.config import (  # noqa: F401
     Config,
     DspConfig,
     MimoConfig,
+    PipelineConfig,
     TrackerConfig,
+    TriangulationConfig,
     realtime,
 )

@@ -23,6 +23,8 @@ outputs equal :meth:`AwpuPipeline.process_block`'s: a batch that does not
 split into whole chunks, or that starts off the decimation phase, runs
 block by block.
 
+``AwpuPipeline`` also calibrates the array from its carried history
+(``calibrate``) and saves and restores its state (``save``, ``restore``).
 Configurations outside the ported slices raise ``NotImplementedError``.
 """
 
@@ -35,7 +37,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from beamforming_lk_tpu_torch.device import full_f32, resolve_device
+from beamforming_lk_tpu_torch.io import checkpoint as ckpt
 from beamforming_lk_tpu_torch.io import ring as rg
+from beamforming_lk_tpu_torch.models import calibration as cal
 from beamforming_lk_tpu_torch.models import miso as ms
 from beamforming_lk_tpu_torch.models import tracker as tk
 from beamforming_lk_tpu_torch.models.mimo import (
@@ -66,19 +71,6 @@ class AwpuOutputs(NamedTuple):
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the torch package yet")
-
-
-def _device(device) -> torch.device:
-    """The torch device of an entry point's ``device`` argument: the card by
-    default; raises when CUDA is asked for on a host without it (the plain
-    twins run only when the caller asks for the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the pipeline runs on CUDA by default and this host has no CUDA "
-            "device; pass device='cpu' to run the kernels' plain twins"
-        )
-    return device
 
 
 def _ema_chain(maxes, prev_max, alpha: float):
@@ -305,7 +297,7 @@ def make_awpu_step(points, cfg, channel_mask=None, mesh=None,
     if mesh is not None:
         raise _not_ported("multi-device execution (mesh)")
     return AwpuStep(points, cfg, channel_mask, enable_mimo, enable_tracker,
-                    enable_miso, _device(device))
+                    enable_miso, resolve_device(device))
 
 
 def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device="cuda",
@@ -315,7 +307,7 @@ def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device="cuda",
     boresight."""
     if mesh is not None:
         raise _not_ported("multi-device execution (mesh)")
-    device = _device(device)
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     return AwpuState(
@@ -332,9 +324,15 @@ def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device="cuda",
 class AwpuPipeline:
     """Host-side orchestrator for one array link (the reference's
     ``AWProcessingUnit``): owns the step, its state and its generator, and
-    exposes ``process_block``, ``process_blocks``, ``steer``, ``targets``
-    and ``heatmap``.  It runs on the card unless ``device`` names the CPU,
-    where the kernels' plain twins run."""
+    exposes ``process_block``, ``process_blocks``, ``steer``, ``targets``,
+    ``heatmap``, ``calibrate``, ``save`` and ``restore``.  It runs on the
+    card unless ``device`` names the CPU, where the kernels' plain twins
+    run.  Its own calls run f32 products without TF32 and leave the
+    caller's TF32 settings as they were (:func:`device.full_f32`)."""
+
+    #: The checkpoint key of the generator's state: the port's draws come
+    #: from :attr:`generator`, where the JAX package carries ``.swarm/.key``.
+    GENERATOR_KEY = "generator"
 
     def __init__(self, cfg, points=None, channel_mask=None, mesh=None,
                  seed: int = 0, enable_mimo: bool = True,
@@ -344,11 +342,7 @@ class AwpuPipeline:
         if heatmap_mode != "das":
             raise _not_ported(f"heatmap_mode {heatmap_mode!r}")
         self.cfg = cfg
-        self.device = _device(device)
-        if self.device.type == "cuda":
-            # f32 products in full precision, as the JAX package's HIGHEST.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device)
         if points is None:
             points = ant.multi_array_cluster(
                 cfg.array.elements if channels is None else channels,
@@ -356,10 +350,12 @@ class AwpuPipeline:
             )
         self.points = np.asarray(points, np.float32)
         self.channel_mask = channel_mask
+        self._enable = dict(enable_mimo=enable_mimo,
+                            enable_tracker=enable_tracker,
+                            enable_miso=enable_miso)
         self.step = make_awpu_step(
             self.points, cfg, channel_mask=channel_mask, mesh=mesh,
-            enable_mimo=enable_mimo, enable_tracker=enable_tracker,
-            enable_miso=enable_miso, device=self.device,
+            device=self.device, **self._enable,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = awpu_init(cfg, self.points.shape[1], device=self.device,
@@ -369,9 +365,10 @@ class AwpuPipeline:
     def process_block(self, block, draws=None) -> AwpuOutputs:
         """Feed one [C, T] block (numpy or tensor) through the step."""
         block = torch.as_tensor(block, dtype=torch.float32, device=self.device)
-        self.state, self.last = self.step(
-            self.state, block, generator=self.generator, draws=draws
-        )
+        with full_f32():
+            self.state, self.last = self.step(
+                self.state, block, generator=self.generator, draws=draws
+            )
         return self.last
 
     def process_blocks(self, blocks, draws=None) -> AwpuOutputs:
@@ -384,9 +381,10 @@ class AwpuPipeline:
         blocks."""
         blocks = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
         if self.step.takes_chunks(self.state, blocks.shape[0]):
-            self.state, stacked = self.step.scan_chunks(
-                self.state, blocks, self.generator, draws
-            )
+            with full_f32():
+                self.state, stacked = self.step.scan_chunks(
+                    self.state, blocks, self.generator, draws
+                )
             self.last = AwpuOutputs(
                 powers=stacked.powers[-1],
                 targets=tk.Targets(*(f[-1] for f in stacked.targets)),
@@ -434,10 +432,42 @@ class AwpuPipeline:
         return img.cpu().numpy()
 
     def calibrate(self, blocks=None, apply_gains: bool = False):
-        raise _not_ported("calibration")
+        """Auto-calibrate and rebuild the step with the resulting channel
+        mask (``AWProcessingUnit::calibrate``, aw_processing_unit.cpp:
+        102-212).  ``blocks``: [C, T] blocks fed first (else the carried
+        history is used as it is); the carried history is calibrated on the
+        device and the mask fetched to the host once.  ``apply_gains``
+        folds ``sqrt(gains)`` into the mask: a gain mask, which the fft
+        heatmap cannot take, so the step falls back to the dense heatmap.
+        The state carries over.  Returns the ``CalibrationResult``."""
+        if blocks is not None:
+            for b in blocks:
+                self.process_block(b)
+        with full_f32():
+            result = cal.calibrate(self.state.history)
+        mask, gains = torch.stack([result.mask, result.gains]).cpu().numpy()
+        if apply_gains:
+            mask = mask * np.sqrt(gains)     # power gains; beams scale by sqrt
+        self.channel_mask = mask
+        self.step = make_awpu_step(self.points, self.cfg, channel_mask=mask,
+                                   device=self.device, **self._enable)
+        return result
 
     def save(self, path: str) -> None:
-        raise _not_ported("checkpoint save")
+        """Checkpoint the carried state (ring history, swarm, MISO, EMA,
+        counters) and the generator's state to ``path`` (.npz), keyed as
+        the JAX package keys its state."""
+        ckpt.save_state(path, self.state, extra={
+            self.GENERATOR_KEY: self.generator.get_state().numpy()})
 
     def restore(self, path: str) -> None:
-        raise _not_ported("checkpoint restore")
+        """Load a checkpoint that :meth:`save` wrote, or that the JAX
+        package's ``AwpuPipeline.save`` wrote, onto this pipeline's device.
+        With the generator's state in the file the pipeline continues bit
+        for bit as the saved one would have; a JAX file carries no torch
+        generator (its ``.swarm/.key`` is not read), so the state is the
+        same and the later draws are this pipeline's own."""
+        self.state = ckpt.load_state(path, self.state)
+        with np.load(path) as data:
+            if self.GENERATOR_KEY in data:
+                self.generator.set_state(torch.as_tensor(data[self.GENERATOR_KEY]))

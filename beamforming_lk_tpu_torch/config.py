@@ -2,7 +2,7 @@
 
 The dataclasses carry the same fields and defaults as
 ``beamforming_lk_tpu/config.py`` (``tests/test_torch_ops.py`` pins them
-field for field), restricted to the four the AWPU step reads.  They
+field for field).  They
 are defined here rather than imported so that the port, and a program
 that drives it, load no module of the JAX package.
 """
@@ -99,13 +99,46 @@ class TrackerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TriangulationConfig:
+    """Multi-array fusion (reference: src/target_handler/triangulate.cpp:32-36,
+    target_handler.cpp:91-128)."""
+
+    distance_threshold: float = 1.0   # max closest-approach between rays [m]
+    # Grow the per-track merge box with log(hits) (the reference computes
+    # this, CalculateDistanceThreshold, but never calls it; False matches).
+    adaptive_merge: bool = False
+    max_range: float = 20.0           # targets beyond this are rejected [m]
+    min_z: float = 0.0                # targets behind the arrays rejected
+    near_z: float = 1.0               # closer than this = static noise
+    norm_limit: float = 50.0          # sanity cap on intersection norm
+    track_merge_distance: float = 1.0  # per-axis merge box [m]
+    track_duplicate_eps: float = 1e-15
+    track_timeout: float = 0.5        # seconds without a hit -> invalid
+    max_tracks: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Ingest configuration (reference: src/fpga/receiver.h, pipeline.cpp)."""
+
+    address: str = "10.0.0.1"
+    ports: tuple = (21844,)
+    max_sensors_per_fpga: int = 256   # MAX_N_SENSORS (receiver.h:17)
+    column_flip: bool = True          # daisy-chain demux (pipeline.cpp:277-291)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
-    """Top-level configuration of the AWPU step."""
+    """Top-level configuration of the AWPU step and of multi-array fusion."""
 
     array: ArrayConfig = dataclasses.field(default_factory=ArrayConfig)
     dsp: DspConfig = dataclasses.field(default_factory=DspConfig)
     mimo: MimoConfig = dataclasses.field(default_factory=MimoConfig)
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
+    triangulation: TriangulationConfig = dataclasses.field(
+        default_factory=TriangulationConfig
+    )
+    pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
 
 
 def realtime(cfg: Config) -> Config:

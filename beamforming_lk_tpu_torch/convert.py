@@ -1,7 +1,8 @@
 """Carry state and constants over from the JAX package.
 
 Every function takes the JAX objects' arrays as numpy (``np.asarray`` of
-each leaf, which needs no JAX import here) and returns the port's tensors.
+each leaf, which needs no JAX import here), or a file the JAX package
+wrote, and returns the port's tensors.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ import numpy as np
 import torch
 
 from beamforming_lk_tpu_torch.app.awpu import AwpuState
+from beamforming_lk_tpu_torch.device import resolve_device
+from beamforming_lk_tpu_torch.io.checkpoint import load_state
 from beamforming_lk_tpu_torch.models.mimo import MimoModel
 from beamforming_lk_tpu_torch.models.miso import MisoState
 from beamforming_lk_tpu_torch.models.tracker import Particles, SwarmState
@@ -61,13 +64,31 @@ def awpu_state_from_jax(state, device=None) -> AwpuState:
     )
 
 
+def _on(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_on(v, device) for v in tree))
+    return tree
+
+
+def awpu_state_from_jax_checkpoint(path: str, template: AwpuState,
+                                   device="cuda") -> AwpuState:
+    """The state in a ``.npz`` that the JAX package's ``AwpuPipeline.save``
+    wrote (keys are its tree paths: ``.history``, ``.swarm/.seekers/.theta``,
+    ..., ``.block_index``, ``.powers``) -> the port's ``AwpuState`` on
+    ``device`` (the card by default), shaped like ``template`` (a state of
+    the same configuration and channel count); the counters become host
+    ints.  The JAX PRNG key ``.swarm/.key`` is not read: the restored state
+    is the same, but the port draws from its own ``torch.Generator``, so
+    the later draws are not the JAX pipeline's."""
+    return load_state(path, _on(template, resolve_device(device)))
+
+
 def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
-    """The JAX ``FftHeatmapModel`` (any ``power_path``; no PHAT, no
-    lattice-order promise) -> the port's module with the same constants."""
-    if model.phat or model.channel_perm is not None:
-        raise NotImplementedError(
-            "the PHAT and lattice-order heatmap models are not ported"
-        )
+    """The JAX ``FftHeatmapModel`` (any ``power_path``, PHAT and the
+    lattice-order promise included) -> the port's module with the same
+    constants."""
     np_ = lambda a: None if a is None else np.asarray(a)  # noqa: E731
     dead = None if model.dead is None else tuple(np.asarray(a) for a in model.dead)
     return FftHeatmapModel(
@@ -77,7 +98,9 @@ def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
         dead=dead, rows=model.rows, columns=model.columns,
         block_size=model.block_size, fft_len=model.fft_len,
         n_active=model.n_active, use_bandpass=model.use_bandpass,
-        compute=model.compute, power_path=model.power_path, device=device,
+        compute=model.compute, phat=model.phat,
+        band_weight=np_(model.band_weight), channel_perm=np_(model.channel_perm),
+        power_path=model.power_path, device=device,
     )
 
 

@@ -562,16 +562,16 @@ __device__ void build_list(const Smem& s, int P, int rank, int n_cta,
 
 // One 4-probe monopulse sub-step of the rows listed in s.list (count in
 // s.list[0], flags in s.act), then the discriminants and the
-// theta-then-phi step per row.  With `split` and fewer probes than warps,
-// each probe's channel sum is split over g = kWarps / n_probe consecutive
+// theta-then-phi step per row.  With fewer probes than warps, each
+// probe's channel sum is split over g = kWarps / n_probe consecutive
 // warps; their partial beams meet in shared memory and the group's first
-// warp sums them in warp order before squaring.  Without it one warp sums
+// warp sums them in warp order before squaring.  Otherwise one warp sums
 // a probe over all channels.  Rows not in the list keep their values.
 // Called by every thread after the barrier that publishes the list; ends
 // with a barrier.
 template <typename WT>
 __device__ void monopulse_substep(const Params& p, const WT* win,
-                                  const Smem& s, bool split) {
+                                  const Smem& s) {
   const int C = p.C, P = p.P, T = p.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ldw = p.span + T - 2, n_out = T - 2;
@@ -586,8 +586,7 @@ __device__ void monopulse_substep(const Params& p, const WT* win,
   const float* spread = rows + SPREAD * P;
 
   const int n_probe = 4 * s.list[0];
-  const int g =
-      !split || n_probe == 0 || n_probe >= kWarps ? 1 : kWarps / n_probe;
+  const int g = n_probe == 0 || n_probe >= kWarps ? 1 : kWarps / n_probe;
   const int n_group = kWarps / g, grp = warp / g, sub = warp - grp * g;
   const int c0 = sub * C / g, c1 = (sub + 1) * C / g;
   float* part = s.part + warp * kTile;
@@ -718,7 +717,7 @@ __device__ void block_update(const Params& p, const Block& b, const Smem& s,
         return (ft[r] > 0.5f && trk[r] > 0.5f) || (j == 0 && fs[r] > 0.5f) ||
                (slot < p.refine && fm[r] > 0.5f);
       });
-      monopulse_substep<WT>(p, win, s, true);
+      monopulse_substep<WT>(p, win, s);
     }
     gather_rows(p, s, cluster);
     if (warp == 0) iteration_boundary(p, b, rows, s.flags, s.misc, it, lane);

@@ -15,7 +15,12 @@ two small per-bin transforms between a forward DFT and a restricted inverse:
 Every spectrum is an (re, im) pair of real planes and every stage a real
 matrix product (``torch.einsum``), as in the JAX package.  Dead channels
 of a binary mask are removed by subtracting their rank-1 contribution.
-The constants are built in numpy float64 by :func:`make_fft_heatmap_model`.
+SRP-PHAT (``MimoConfig.phat``) whitens each channel's spectrum to unit
+magnitude and keeps the bins of ``phat_band``.  A model built with
+``assume_lattice_order=True`` takes windows whose rows are already in
+lattice-site order (row ``s`` = channel ``channel_perm[s]``) and skips the
+permutation product.  The constants are built in numpy float64 by
+:func:`make_fft_heatmap_model`.
 
 The final power stage is the model's ``power_path``: ``"fused"`` (the
 einsum against ``pow_ri``, then the square-reduce), ``"pallas"`` (the same
@@ -127,12 +132,17 @@ class FftHeatmapModel(nn.Module):
     normalization folded in; ``perm_matrix`` [C, C] one-hot site<-channel
     (None when channel order is lattice order); ``src_map`` [D] the
     off-disc gather (None when every pixel is on the disc); ``dead_*`` the
-    rank-1 terms of masked channels (None without dead channels)."""
+    rank-1 terms of masked channels, ``dead_chan`` their window rows (None
+    without dead channels); ``band_weight`` [F] the PHAT band (None without
+    PHAT).  ``channel_perm`` (numpy, not a buffer) is the channel of each
+    window row under the lattice-order promise, None without it or when
+    channel order is lattice order."""
 
     def __init__(self, *, ex_s, ey_s, dft, idft, pow_ri, perm_matrix=None,
                  src_map=None, dead=None, rows: int, columns: int,
                  block_size: int, fft_len: int, n_active: float,
                  use_bandpass: bool = True, compute: str = "float32",
+                 phat: bool = False, band_weight=None, channel_perm=None,
                  power_path: str = "fused", device=None):
         super().__init__()
         if power_path not in POWER_PATHS:
@@ -156,6 +166,9 @@ class FftHeatmapModel(nn.Module):
                            dead[:4]):
             buf(name, a)
         buf("dead_chan", dead[4], torch.long)
+        buf("band_weight", band_weight)
+        self.phat = phat
+        self.channel_perm = channel_perm
         self.rows = rows
         self.columns = columns
         self.block_size = block_size
@@ -176,6 +189,7 @@ def make_fft_heatmap_model(
     array_cfg,
     channel_mask=None,
     compute: Optional[str] = None,
+    phat_band=(550.0, 9000.0),
     power_path: str = "fused",
     assume_lattice_order: bool = False,
     device=None,
@@ -183,15 +197,10 @@ def make_fft_heatmap_model(
     """Precompute the separable steering factors in numpy float64, or
     return None when the configuration does not factor (non-lattice points
     or a non-binary gain mask).  ``power_path`` selects the final stage
-    (module docstring)."""
-    if mimo_cfg.phat:
-        raise NotImplementedError(
-            "SRP-PHAT whitening is not ported to the torch heatmap yet"
-        )
-    if assume_lattice_order:
-        raise NotImplementedError(
-            "the lattice-ordered heatmap model is not ported yet"
-        )
+    (module docstring); ``phat_band`` [Hz] the bins PHAT keeps.
+    ``assume_lattice_order=True`` promises windows whose rows are in
+    lattice-site order (row ``s`` = channel ``model.channel_perm[s]``),
+    which drops the per-block permutation product."""
     lat = lattice_factorization(points)
     if lat is None:
         return None
@@ -261,21 +270,40 @@ def make_fft_heatmap_model(
                 np.sin(ang_x[:, :, cxs]).astype(np.float32),
                 np.cos(ang_y[:, :, cys]).astype(np.float32),
                 np.sin(ang_y[:, :, cys]).astype(np.float32),
-                dead_chan,
+                # A dead channel's window row: its site under the promise.
+                sites if assume_lattice_order else dead_chan,
             )
     pow_ri = (pow_np / np.sqrt(t * max(n_active, 1.0))).astype(np.float32)
-    perm_matrix = None
+    perm_matrix = channel_perm = None
     if not np.array_equal(lat.perm, np.arange(len(lat.perm))):
-        perm_matrix = np.zeros((len(lat.perm), len(lat.perm)), np.float32)
-        perm_matrix[np.arange(len(lat.perm)), lat.perm] = 1.0
+        if assume_lattice_order:
+            channel_perm = lat.perm.copy()
+        else:
+            perm_matrix = np.zeros((len(lat.perm), len(lat.perm)), np.float32)
+            perm_matrix[np.arange(len(lat.perm)), lat.perm] = 1.0
+    band_weight = None
+    if mimo_cfg.phat:
+        hz = f * array_cfg.sample_rate / L
+        band_weight = ((hz >= phat_band[0]) & (hz <= phat_band[1])).astype(np.float32)
     return FftHeatmapModel(
         ex_s=_stacked(ang_x), ey_s=_stacked(ang_y), dft=dft,
         idft=idft_np.astype(np.float32), pow_ri=pow_ri,
         perm_matrix=perm_matrix, src_map=_offdisc_gather(mimo_cfg), dead=dead,
         rows=mimo_cfg.rows, columns=mimo_cfg.columns, block_size=t,
         fft_len=L, n_active=n_active, use_bandpass=dsp_cfg.use_bandpass,
-        compute=compute or "float32", power_path=power_path, device=device,
+        compute=compute or "float32", phat=bool(mimo_cfg.phat),
+        band_weight=band_weight, channel_perm=channel_perm,
+        power_path=power_path, device=device,
     )
+
+
+def _whiten(re, im, model: FftHeatmapModel):
+    """SRP-PHAT: the spectra [..., F] at unit magnitude per bin, weighted by
+    the model's band; unchanged without PHAT."""
+    if not model.phat:
+        return re, im
+    mag = torch.sqrt(re * re + im * im) + 1e-12
+    return re / mag * model.band_weight, im / mag * model.band_weight
 
 
 def _steered_spectra(window, model: FftHeatmapModel, mm):
@@ -292,7 +320,7 @@ def _steered_spectra(window, model: FftHeatmapModel, mm):
     if model.perm_matrix is not None:
         x_ri = mm("sc,...cf->...sf", model.perm_matrix, x_ri)
     x = x_ri.reshape(*lead, cy, cx, 2, f_half)
-    x_re, x_im = x[..., 0, :], x[..., 1, :]                 # [..., Cy, Cx, F]
+    x_re, x_im = _whiten(x[..., 0, :], x[..., 1, :], model)  # [..., Cy, Cx, F]
     x_for = torch.cat([
         torch.cat([x_re, -x_im], dim=-2),                   # -> b1_re
         torch.cat([x_im, x_re], dim=-2),                    # -> b1_im
@@ -309,8 +337,9 @@ def _steered_spectra(window, model: FftHeatmapModel, mm):
     if model.dead_chan is not None:
         s_ri = mm("...nt,tf->...nf", window[..., model.dead_chan, :],
                   model.dft)                                # [..., Nd, 2F]
-        srt = s_ri[..., :f_half].transpose(-1, -2)[..., None, :]  # [..., F, 1, Nd]
-        sit = s_ri[..., f_half:].transpose(-1, -2)[..., None, :]
+        sr, si = _whiten(s_ri[..., :f_half], s_ri[..., f_half:], model)
+        srt = sr.transpose(-1, -2)[..., None, :]            # [..., F, 1, Nd]
+        sit = si.transpose(-1, -2)[..., None, :]
         xdr, xdi = model.dead_xre, model.dead_xim
         ydr, ydi = model.dead_yre, model.dead_yim
         t1_r = xdr * srt - xdi * sit                        # [..., F, Dx, Nd]
@@ -333,9 +362,10 @@ def _compute_dtype(model: FftHeatmapModel):
 def _mm_builders(model: FftHeatmapModel):
     """(mm_mid, mm_f32): einsums with inputs in the compute dtype.
     ``mm_mid`` writes its output in the compute dtype, as the JAX package's
-    intermediate stages do; ``mm_f32`` returns float32 — for bf16 it runs
-    on bf16-rounded inputs cast to float32, which is a bf16-input,
-    f32-accumulate, f32-output product."""
+    intermediate stages do, except under PHAT, whose whitening wants f32
+    magnitudes: there it is ``mm_f32``.  ``mm_f32`` returns float32 — for
+    bf16 it runs on bf16-rounded inputs cast to float32, which is a
+    bf16-input, f32-accumulate, f32-output product."""
     dtype = _compute_dtype(model)
 
     def mm_mid(sub, a, b):
@@ -346,7 +376,7 @@ def _mm_builders(model: FftHeatmapModel):
             sub, a.to(dtype).to(torch.float32), b.to(dtype).to(torch.float32)
         )
 
-    return mm_mid, mm_f32
+    return (mm_f32 if model.phat else mm_mid), mm_f32
 
 
 def _power_stage(b2_re, b2_im, model: FftHeatmapModel, mm_f32):

@@ -31,6 +31,18 @@ Phases (any failed check raises, so the exit code is non-zero):
 9. the chunked heatmap at 256 mics through K3 (``power_path="pallas"``, as
    ``bench.py``'s chunked variant) against the fused path, and the
    heatmap-only replay on 96 blocks;
+9a. the lattice-ordered, SRP-PHAT and PHAT + lattice-ordered heatmaps at
+   256 mics (8 windows of a broadband source, bf16): one K3 launch each,
+   against the fused path and the plain models, with times;
+9b. startup calibration at 256 mics (a dead mic masked, card vs CPU), 96
+   calibrated blocks (K1, lock, ms/block), then ``apply_gains`` (the dense
+   fallback, K4);
+9c. save and restore at 64 mics: the restored pipeline's next 12 blocks,
+   live and as one replay chunk (K2), bitwise equal to the uninterrupted
+   run's;
+9d. two 256-mic arrays at x = -1, +1 m fused into a 3D track over 96
+   blocks (``TargetFusion`` on the card), against the source and a numpy
+   triangulation of the published rays, with the fusion step's time;
 10. the DAS-beam kernel (K4) against its twin at the heatmap's shapes (a
     64 x 64 grid, 64 and 256 mics, f32 and bf16, one window and a stack
     of 8), and the monopulse-chain kernel (K0) against its twin (64 and
@@ -607,16 +619,20 @@ def check_lock(what: str, cfg, pipe, beam, powers) -> str:
             f"{want}, beam peak {np.abs(beam).max():.4g}")
 
 
-def _plane_wave_blocks(pipe, cfg, channels, device):
+def _plane_wave_blocks(pipe, cfg, seed: int, device, n: int = N_BLOCKS,
+                       direction=SOURCE):
+    """``n`` consecutive blocks [n, C, T] at ``pipe``'s mics of a noisy
+    5 kHz plane wave from ``direction`` (theta, phi), noise drawn from
+    ``seed``, on ``device``."""
     import torch
 
     from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
 
-    rng = np.random.default_rng(channels)
+    rng = np.random.default_rng(seed)
     return torch.as_tensor(np.stack([
-        plane_wave_block(pipe.points, [SOURCE], i * 256, 256, cfg.array,
-                         noise_std=0.02, rng=rng)
-        for i in range(N_BLOCKS)
+        plane_wave_block(pipe.points, [(direction[0], direction[1], 5000.0)],
+                         i * 256, 256, cfg.array, noise_std=0.02, rng=rng)
+        for i in range(n)
     ]), device=device)
 
 
@@ -792,6 +808,321 @@ def run_chunked_heatmap(device):
           f"source {src}; {hm_ms:.4f} ms/block device, {host_ms:.4f} ms/block "
           "host", flush=True)
     return counts["power_matmul"], ms, fused_ms
+
+
+PHAT_TONES = (1000.0, 2500.0, 4000.0, 5500.0, 7000.0, 8500.0, 10000.0, 12000.0)
+# Phase d's source [m] and arrays.  The source sits 19-22 deg off both
+# arrays' boresight: at (0.4, 0.6, 6.0) it would be 8 deg off the +1 m
+# array's, inside its 5 kHz main lobe at 256 mics, where the swarm's
+# seekers can stick at theta = 0 (the phi step divides by sin theta) and
+# never lock (3 of 9 torch seeds and 8 of 12 JAX seeds locked in 96
+# blocks; at (0.4, 2.0, 6.0) 16 of 16 torch seeds locked within 6).
+FUSION_TARGET = (0.4, 2.0, 6.0)
+FUSION_ARRAYS = ((-1.0, 0.0, 0.0), (1.0, 0.0, 0.0))
+# The fused position's distance from the source that phase d allows: 10x
+# the 0.0029 m of the same phase on the CPU (the kernels' twins); a
+# published direction may differ from the twin's by 1e-3 rad (phase 3's
+# bound), ~6 mm at 6.3 m.
+FUSION_BOUND_M = 0.03
+
+
+def run_phat_lattice(device):
+    """The heatmap's SRP-PHAT and lattice-ordered models at 256 mics on a
+    64 x 64 grid, bf16, over 8 windows of a broadband source (tones from
+    SOURCE's direction), through ``fft_heatmap_powers_chunked``: the
+    lattice-ordered model, PHAT, and PHAT + lattice-ordered.  For each,
+    the ``"pallas"`` run is one K3 launch and agrees with ``"fused"`` within
+    1e-4 of the peak, and its maps peak on the source.  The lattice models,
+    fed the windows reordered by ``channel_perm``, agree with the plain
+    models on the raw windows within 1e-5 of the peak; under PHAT that holds
+    in f32 (the bf16 plain model rounds the spectra before its permutation
+    product, and the lattice model does not, as in the JAX package, which
+    moves the bf16 maps ~2e-3 apart, a bf16 ulp: bounded at 4e-3).  Returns (K3
+    launches, {model: (K3 path ms, fused ms)})."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    cfg = realtime(Config())
+    dsp, n_win = cfg.dsp, 8
+    pts = ant.multi_array_cluster(256)
+    stream = plane_wave_block(pts, [(SOURCE[0], SOURCE[1], f) for f in PHAT_TONES],
+                              0, dsp.shift_range + n_win * 256, cfg.array,
+                              noise_std=0.02, rng=np.random.default_rng(9))
+    windows = torch.as_tensor(stream, device=device).unfold(
+        -1, dsp.shift_range + 256, 256).movedim(-2, 0)
+
+    def model(phat, lattice, power_path, compute=dsp.compute):
+        return fd.make_fft_heatmap_model(
+            pts, dataclasses.replace(cfg.mimo, phat=phat), dsp, cfg.array,
+            compute=compute, power_path=power_path,
+            assume_lattice_order=lattice, device=device)
+
+    launches, times = 0, {}
+    for name, phat, lattice in (("lattice", False, True), ("phat", True, False),
+                                ("phat+lattice", True, True)):
+        pal, fus = model(phat, lattice, "pallas"), model(phat, lattice, "fused")
+        wins = windows if pal.channel_perm is None else \
+            windows[:, torch.as_tensor(pal.channel_perm, device=device)]
+        _reset_counts()
+        got = fd.fft_heatmap_powers_chunked(wins, pal)
+        torch.cuda.synchronize()
+        launches += _counts(power_matmul=1)["power_matmul"]
+        want = fd.fft_heatmap_powers_chunked(wins, fus)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"{name} heatmap pallas vs fused {err:.3g} > 1e-4")
+        for i in range(n_win):
+            check_map(f"{name} heatmap window {i}", cfg, got[i])
+        line = f"pallas vs fused {err:.3g} of the peak (tol 1e-4)"
+        if lattice:
+            checks = [(dsp.compute, 4e-3 if phat else 1e-5)]
+            if phat:
+                checks.append(("float32", 1e-5))
+            for compute, tol in checks:
+                lat = fd.fft_heatmap_powers_chunked(
+                    wins, model(phat, True, "fused", compute))
+                ref = fd.fft_heatmap_powers_chunked(
+                    windows, model(phat, False, "fused", compute))
+                lerr = float((lat - ref).abs().max() / ref.abs().max())
+                if not lerr <= tol:
+                    raise AssertionError(f"{name} vs the plain model ({compute}) "
+                                         f"{lerr:.3g} > {tol}")
+                line += (f"; vs the plain model on raw windows ({compute}) "
+                         f"{lerr:.3g} (tol {tol:g})")
+        ms = _cuda_ms(lambda: fd.fft_heatmap_powers_chunked(wins, pal), 20)
+        fused_ms = _cuda_ms(lambda: fd.fft_heatmap_powers_chunked(wins, fus), 20)
+        times[name] = (ms, fused_ms)
+        print(f"{name} heatmap 256 mics {n_win} x 64x64 {dsp.compute}: 1 K3 launch, "
+              f"{line}; peaks on the source; {ms:.4f} ms per call through K3, "
+              f"{fused_ms:.4f} ms fused", flush=True)
+    return launches, times
+
+
+def run_calibration(device):
+    """Startup calibration at 256 mics on the realtime profile: the first 4
+    blocks (one ring) with mic 21 zeroed through ``calibrate``.  The mask
+    drops mic 21 and keeps >= 250 mics; the card's ``CalibrationResult``
+    equals the CPU's on the same history within rtol 1e-6; the rebuilt
+    step keeps the fft heatmap with its dead-channel term.  Then 96 blocks
+    (K1 per block, lock, ms/block), then ``calibrate(apply_gains=True)``
+    on the carried history: a gain mask, so the dense fallback (K4 on
+    every 3rd block) on 48 more blocks, locked.  Returns (K1 launches, K4
+    launches, ms/block)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.models import calibration as cal
+
+    cfg = realtime(Config())
+    pipe = AwpuPipeline(cfg, channels=256, seed=0, device=device)
+    blocks = _plane_wave_blocks(pipe, cfg, 21, device, 4 + N_BLOCKS + 48)
+    first = blocks[:4].clone()
+    first[:, 21] = 0.0
+    _reset_counts()
+    result = pipe.calibrate(first)
+    mask = result.mask.cpu().numpy()
+    if mask[21] != 0.0 or mask.sum() < 250:
+        raise AssertionError(f"calibration kept mic 21 or dropped too many: "
+                             f"{int(mask.sum())} mics")
+    want = cal.calibrate(pipe.state.history.cpu())
+    worst = 0.0
+    for field in dataclasses.fields(want):
+        a = getattr(result, field.name).cpu().double()
+        b = getattr(want, field.name).double()
+        worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+    if not worst <= 1e-6:
+        raise AssertionError(f"calibration card vs CPU {worst:.3g} > 1e-6")
+    model = pipe.step.fft_model
+    if model is None or model.dead_chan.tolist() != [21]:
+        raise AssertionError("the calibrated step lost the fft heatmap's dead term")
+    _counts(swarm_chain=4)
+    _reset_counts()
+    out, ms, host_ms = _timed_blocks(pipe, blocks[4:4 + N_BLOCKS], 16)
+    k1 = _counts(swarm_chain=N_BLOCKS)["swarm_chain"]
+    last_map = pipe.state.powers
+    lock = check_lock("calibrated 256 mics", cfg, pipe, out.miso_beam, last_map)
+    print(f"calibration 256 mics: mic 21 masked, {int(mask.sum())} mics kept "
+          f"(tol >= 250), card vs CPU {worst:.3g} (tol 1e-6); {k1} K1 launches / "
+          f"{N_BLOCKS} blocks, {lock}; {ms:.4f} ms/block device, {host_ms:.4f} "
+          "ms/block host", flush=True)
+    gains = pipe.calibrate(apply_gains=True)
+    if pipe.step.mimo_model is None:
+        raise AssertionError("apply_gains did not fall back to the dense heatmap")
+    _reset_counts()
+    n = 48
+    out, gain_ms, _ = _timed_blocks(pipe, blocks[4 + N_BLOCKS:], 12)
+    k4 = n // cfg.mimo.heatmap_every
+    counts = _counts(swarm_chain=n, das_beam=k4)
+    lock = check_lock("gain-calibrated 256 mics", cfg, pipe, out.miso_beam,
+                      pipe.state.powers)
+    print(f"  apply_gains ({int(gains.usable)} mics, gains "
+          f"{float(gains.gains[gains.mask > 0].min()):.4g}-"
+          f"{float(gains.gains.max()):.4g}): dense fallback, {counts['swarm_chain']} "
+          f"K1 + {counts['das_beam']} K4 launches / {n} blocks, {lock}; "
+          f"{gain_ms:.4f} ms/block device", flush=True)
+    return k1 + n + 4, k4, ms
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two trees of tensors and host values."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def run_save_restore(device):
+    """Save and restore on the card (realtime, 64 mics): 12 blocks (one
+    chunk, so the next block starts on the decimation phase), ``save``,
+    ``restore`` into a pipeline built with another seed; the next 12
+    blocks once through ``process_block`` (12 K1 launches) and once as one
+    ``process_blocks`` chunk (one K2 launch) are bitwise equal to the
+    uninterrupted pipeline's outputs and final state.  Returns (K1
+    launches, K2 launches)."""
+    import os
+    import tempfile
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = realtime(Config())
+    k1 = k2 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        for replay in (False, True):
+            pipe = AwpuPipeline(cfg, channels=64, seed=0, device=device)
+            blocks = _plane_wave_blocks(pipe, cfg, 12, device, 2 * CHUNK)
+            pipe.process_blocks(blocks[:CHUNK])
+            pipe.save(path)
+            restored = AwpuPipeline(cfg, channels=64, seed=1, device=device)
+            restored.restore(path)
+            if not _same(restored.state, pipe.state):
+                raise AssertionError("the restored state differs from the saved one")
+            outs = []
+            for p in (pipe, restored):
+                _reset_counts()
+                outs.append(p.process_blocks(blocks[CHUNK:]) if replay else
+                            [p.process_block(b) for b in blocks[CHUNK:]])
+                if replay:
+                    k2 += _counts(swarm_chunk=1)["swarm_chunk"]
+                else:
+                    k1 += _counts(swarm_chain=CHUNK)["swarm_chain"]
+            if not (_same(outs[1], outs[0]) and _same(restored.state, pipe.state)):
+                raise AssertionError(f"the restored pipeline's {'replay' if replay else 'live'} "
+                                     "blocks differ from the uninterrupted one's")
+    print(f"save/restore 64 mics: restored into another seed's pipeline, the next "
+          f"{CHUNK} blocks bitwise equal to the uninterrupted run's, live ({CHUNK} "
+          "K1 launches) and as one replay chunk (1 K2 launch), state included",
+          flush=True)
+    return k1, k2
+
+
+def _triangulate_np(o1, d1, o2, d2, cfg):
+    """The reference's triangulatePoint (triangulate.cpp:10-41) in float64
+    numpy, one ray pair: the midpoint, or None where a gate fails."""
+    o1, d1, o2, d2 = (np.asarray(v, np.float64) for v in (o1, d1, o2, d2))
+    n = np.cross(d1, d2)
+    nn = float(n @ n)
+    if nn <= 1e-20:
+        return None
+    p1 = o1 + d1 * float(np.cross(d2, n) @ (o2 - o1)) / nn
+    p2 = o2 + d2 * float(np.cross(d1, n) @ (o2 - o1)) / nn
+    mid = (p1 + p2) / 2.0
+    if (np.linalg.norm(p1 - p2) > cfg.distance_threshold
+            or np.linalg.norm(mid) > cfg.max_range or p1[2] + p2[2] < cfg.min_z
+            or mid[2] < cfg.near_z or np.linalg.norm(mid) > cfg.norm_limit):
+        return None
+    return mid
+
+
+def fuse_two_arrays(device, n_blocks: int = N_BLOCKS):
+    """Two realtime 256-mic pipelines at x = -1 and +1 m, each hearing a
+    5 kHz plane wave from the direction of a source at FUSION_TARGET, in the
+    published convention: the wave's (theta, phi) are those whose
+    ``spherical_to_cartesian`` ray points at the source.  (The steering
+    row's y is negated, u = (sin t cos p, -sin t sin p, cos t), so a wave
+    made from world geometry would fuse at the source's mirror image in
+    y.)  ``TargetFusion`` fuses their targets after every block.  Returns
+    (the best track, its distance from the source [m], the worst distance
+    of a best track hit in a step from the float64 numpy triangulation of
+    that step's published rays, the steps so checked, the fusion step's
+    median host ms)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.models.fusion import TargetFusion, target_rays
+
+    cfg = realtime(Config())
+    target = np.asarray(FUSION_TARGET)
+    fusion = TargetFusion(cfg.triangulation, device=device)
+    pipes, streams = [], []
+    for seed, pos in enumerate(FUSION_ARRAYS):
+        d = target - np.asarray(pos)
+        d /= np.linalg.norm(d)
+        pipe = AwpuPipeline(cfg, channels=256, seed=seed, device=device)
+        fusion.add_array(pipe, pos)
+        pipes.append(pipe)
+        streams.append(_plane_wave_blocks(pipe, cfg, 30 + seed, device, n_blocks,
+                                          (math.acos(d[2]), math.atan2(d[1], d[0]))))
+    step_ms, worst, checked = [], 0.0, 0
+    for i in range(n_blocks):
+        for pipe, blocks in zip(pipes, streams):
+            pipe.process_block(blocks[i])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        now = i * 256 / cfg.array.sample_rate
+        h0 = time.perf_counter()
+        best = fusion.step(now)
+        step_ms.append((time.perf_counter() - h0) * 1e3)
+        if best is not None and best.time_last_hit == now:
+            rays = [target_rays(p.targets(), pos)
+                    for p, pos in zip(pipes, FUSION_ARRAYS)]
+            pts = [_triangulate_np(o1, d1, o2, d2, cfg.triangulation)
+                   for o1, d1 in zip(*rays[0]) for o2, d2 in zip(*rays[1])]
+            pts = [p for p in pts if p is not None]
+            if not pts:
+                raise AssertionError(f"block {i}: a track was hit but numpy "
+                                     "triangulates no valid pair")
+            worst = max(worst, min(float(np.linalg.norm(best.position - p))
+                                   for p in pts))
+            checked += 1
+    if best is None or best.hits < 2:
+        raise AssertionError(f"fusion found no track with 2 hits: {best}")
+    return (best, float(np.linalg.norm(best.position - target)), worst, checked,
+            float(np.median(step_ms[8:])))
+
+
+def run_fusion(device):
+    """Phase d on the card: :func:`fuse_two_arrays` for 96 blocks, K1 once
+    per block per array; the best track within FUSION_BOUND_M of the
+    source; every best-track hit within 1e-5 m of the numpy triangulation
+    of the same published rays.  Returns (K1 launches, median fusion step
+    ms)."""
+    _reset_counts()
+    best, err, worst, checked, step_ms = fuse_two_arrays(device)
+    counts = _counts(swarm_chain=2 * N_BLOCKS)
+    if not err <= FUSION_BOUND_M:
+        raise AssertionError(f"fused track {err:.4g} m from the source > "
+                             f"{FUSION_BOUND_M} m")
+    if not (checked and worst <= 1e-5):
+        raise AssertionError(f"fused position vs numpy triangulation {worst:.3g} m "
+                             f"> 1e-5 m over {checked} steps")
+    print(f"fusion of two 256-mic arrays at x = -1, +1 m, {N_BLOCKS} blocks: "
+          f"{counts['swarm_chain']} K1 launches; best track {np.round(best.position, 4)} "
+          f"with {best.hits} hits, {err:.4g} m from the source {FUSION_TARGET} (tol "
+          f"{FUSION_BOUND_M} m); vs numpy triangulation of the published rays "
+          f"{worst:.3g} m over {checked} steps (tol 1e-5 m); fusion step "
+          f"{step_ms:.4f} ms median (host clock, 2 target fetches)", flush=True)
+    return counts["swarm_chain"], step_ms
 
 
 def das_operands(channels: int, device, interp: str = "linear"):
@@ -1218,6 +1549,14 @@ def main() -> int:
     for ch in (64, 256):
         launches["swarm_chunk"] += run_replay(ch, "cuda")[0]
     launches["power_matmul"] += run_chunked_heatmap("cuda")[0]
+    launches["power_matmul"] += run_phat_lattice("cuda")[0]
+    n_k1, n_k4, _ = run_calibration("cuda")
+    launches["swarm_chain"] += n_k1
+    launches["das_beam"] += n_k4
+    n_k1, n_k2 = run_save_restore("cuda")
+    launches["swarm_chain"] += n_k1
+    launches["swarm_chunk"] += n_k2
+    launches["swarm_chain"] += run_fusion("cuda")[0]
     k4, k0 = {}, {}
     for ch in (64, 256):
         for compute in ("float32", "bfloat16"):

@@ -7,6 +7,7 @@ import inspect
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -15,9 +16,12 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
+from beamforming_lk_tpu_torch import convert  # noqa: E402
 from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
 from beamforming_lk_tpu_torch.app import awpu  # noqa: E402
+from beamforming_lk_tpu_torch.io import checkpoint as ckpt  # noqa: E402
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block  # noqa: E402
+from beamforming_lk_tpu_torch.models import fusion, kalman  # noqa: E402
 from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_das as cd  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
@@ -30,16 +34,32 @@ SMALL = tcfg.realtime(tcfg.Config(
 ))
 
 _NO_JAX = """
-import sys
+import os, sys, tempfile
 import numpy as np
 from beamforming_lk_tpu_torch import Config, MimoConfig, realtime
 from beamforming_lk_tpu_torch.app import AwpuPipeline
+from beamforming_lk_tpu_torch.io import checkpoint
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
-pipe = AwpuPipeline(realtime(Config(mimo=MimoConfig(rows=16, columns=16))),
-                    device="cpu")
+from beamforming_lk_tpu_torch.models import calibration, fusion, kalman
+cfg = realtime(Config(mimo=MimoConfig(rows=16, columns=16, phat=True)))
+pipes = [AwpuPipeline(cfg, device="cpu", seed=s) for s in (0, 1)]
+blocks = [plane_wave_block(pipes[0].points, [(0.5, 1.2, 5e3)], i * 256, 256)
+          for i in range(4)]
+result = pipes[0].calibrate(blocks)
+assert isinstance(result, calibration.CalibrationResult)
+with tempfile.TemporaryDirectory() as d:
+    pipes[0].save(os.path.join(d, "s.npz"))
+    pipes[1].restore(os.path.join(d, "s.npz"))
+    checkpoint.load_state(os.path.join(d, "s.npz"), pipes[1].state)
+fuse = fusion.TargetFusion(cfg.triangulation, device="cpu")
+for p, x in zip(pipes, (-1.0, 1.0)):
+    fuse.add_array(p, [x, 0.0, 0.0])
 for i in range(2):
-    out = pipe.process_block(plane_wave_block(pipe.points, [(0.5, 1.2, 5e3)],
-                                              i * 256, 256))
+    for p in pipes:
+        out = p.process_block(blocks[i])
+    fuse.step(i * 0.005)
+kf = kalman.KalmanFilter3D(0.005, device="cpu")
+kf.update(kf.init(), [0.4, 0.6, 6.0])
 assert np.isfinite(out.powers.numpy()).all() and out.miso_beam.shape == (256,)
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "beamforming_lk_tpu" or m.startswith("beamforming_lk_tpu.")]
@@ -56,17 +76,33 @@ def test_port_runs_two_blocks_without_loading_jax():
     assert "no jax" in proc.stdout
 
 
+def _restore_jax_checkpoint(**kw):
+    """``awpu_state_from_jax_checkpoint`` of a file with the JAX package's
+    keys (the port writes the same ones)."""
+    template = awpu.awpu_init(SMALL, 64, device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        ckpt.save_state(path, template)
+        return convert.awpu_state_from_jax_checkpoint(path, template, **kw)
+
+
+# Each entry point that places work on a device: (function, a call of it).
 _ENTRY_POINTS = {
-    "AwpuPipeline": lambda **kw: awpu.AwpuPipeline(SMALL, **kw),
-    "make_awpu_step": lambda **kw: awpu.make_awpu_step(
-        ant.create_antenna_grid(), SMALL, **kw),
-    "awpu_init": lambda **kw: awpu.awpu_init(SMALL, 64, **kw),
+    "AwpuPipeline": (awpu.AwpuPipeline, lambda **kw: awpu.AwpuPipeline(SMALL, **kw)),
+    "make_awpu_step": (awpu.make_awpu_step, lambda **kw: awpu.make_awpu_step(
+        ant.create_antenna_grid(), SMALL, **kw)),
+    "awpu_init": (awpu.awpu_init, lambda **kw: awpu.awpu_init(SMALL, 64, **kw)),
+    "TargetFusion": (fusion.TargetFusion, lambda **kw: fusion.TargetFusion(**kw)),
+    "KalmanFilter3D": (kalman.KalmanFilter3D,
+                       lambda **kw: kalman.KalmanFilter3D(0.005, **kw)),
+    "awpu_state_from_jax_checkpoint": (convert.awpu_state_from_jax_checkpoint,
+                                       _restore_jax_checkpoint),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
 def test_entry_points_default_to_cuda(entry):
-    param = inspect.signature(getattr(awpu, entry)).parameters["device"]
+    param = inspect.signature(_ENTRY_POINTS[entry][0]).parameters["device"]
     assert param.default == "cuda"
 
 
@@ -75,9 +111,10 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
     """On a host without CUDA the default device raises and never carries
     on on the CPU; asking for the CPU runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _ENTRY_POINTS[entry][1]
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        _ENTRY_POINTS[entry]()
-    assert _ENTRY_POINTS[entry](device="cpu") is not None
+        call()
+    assert call(device="cpu") is not None
 
 
 def test_swarm_chain_rejects_devices_other_than_cuda_and_cpu():
@@ -150,15 +187,15 @@ def _replace(cfg, part, **kw):
 
 _OUTSIDE = {
     "mesh": dict(kwargs=dict(mesh=object())),
-    "phat": dict(cfg=_replace(SMALL, "mimo", phat=True)),
     "mvdr": dict(kwargs=dict(heatmap_mode="mvdr")),
     "music": dict(kwargs=dict(heatmap_mode="music")),
 }
 
-# Configurations of the default-profile slice: the unfused tracker and
+# Configurations of the default-profile slice (the unfused tracker and
 # MISO steps, the XLA-chain backend, the dense heatmap and the fft
-# backend's fallback to it.
+# backend's fallback to it) and SRP-PHAT.
 _INSIDE = {
+    "phat": dict(cfg=_replace(SMALL, "mimo", phat=True)),
     "tracker_off": dict(kwargs=dict(enable_tracker=False)),
     "miso_off": dict(kwargs=dict(enable_miso=False)),
     "iterations_10": dict(cfg=_replace(SMALL, "tracker", iterations=10)),
@@ -200,11 +237,61 @@ def test_inside_the_slice_runs_two_blocks(case):
 
 
 @pytest.mark.parametrize("method", ["calibrate", "save", "restore"])
-def test_state_io_and_calibration_raise(method):
+def test_state_io_and_calibration_run(tmp_path, method):
+    """Each method runs on a pipeline with the heatmap off: ``calibrate``
+    masks a dead mic and rebuilds the step, ``save`` writes the state's
+    leaves and the generator, ``restore`` brings them back."""
     pipe = AwpuPipeline(SMALL, enable_mimo=False, device="cpu")
-    args = () if method == "calibrate" else ("state.npz",)
-    with pytest.raises(NotImplementedError):
-        getattr(pipe, method)(*args)
+    path = str(tmp_path / "state.npz")
+    blocks = np.stack([plane_wave_block(pipe.points, [(0.5, 1.2, 5e3)], i * 256,
+                                        256) for i in range(4)])
+    blocks[:, 3] = 0.0
+    if method == "calibrate":
+        step = pipe.step
+        result = pipe.calibrate(blocks)
+        assert result.mask[3] == 0.0 and int(result.usable) == 63
+        assert pipe.step is not step and pipe.step.swarm_step is not None
+        assert pipe.state.block_index == 4
+        return
+    pipe.process_blocks(blocks)
+    pipe.save(path)
+    with np.load(path) as data:
+        assert {".history", ".block_index", ".swarm/.reset_count",
+                AwpuPipeline.GENERATOR_KEY} <= set(data.files)
+    if method == "restore":
+        other = AwpuPipeline(SMALL, enable_mimo=False, seed=5, device="cpu")
+        other.restore(path)
+        assert other.state.block_index == 4
+        assert torch.equal(other.state.history, pipe.state.history)
+        assert torch.equal(other.generator.get_state(), pipe.generator.get_state())
+
+
+def test_pipeline_scopes_tf32_to_its_own_calls(monkeypatch):
+    """The pipeline's calls run without TF32 and give the caller's TF32
+    settings back afterwards, also when a call raises."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    from beamforming_lk_tpu_torch.device import _tf32_switches
+
+    pipe = AwpuPipeline(SMALL, device="cpu")
+    seen = []
+    real = pipe.step.forward
+
+    def forward(*args, **kwargs):
+        # Read through the switches the port sets: torch refuses to read
+        # allow_tf32 while the newer fp32_precision disagrees with it.
+        seen.append([getattr(h, n) == v for h, n, v in _tf32_switches()])
+        return real(*args, **kwargs)
+
+    pipe.step.forward = forward
+    pipe.process_block(np.zeros((64, 256), np.float32))
+    pipe.process_blocks(np.zeros((2, 64, 256), np.float32))
+    pipe.calibrate()
+    assert seen == [[True, True]] * 3
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    with pytest.raises(RuntimeError):
+        pipe.process_block(np.zeros((63, 256), np.float32))
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 
 
 def test_fused_chunk_configuration_runs(monkeypatch):

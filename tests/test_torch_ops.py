@@ -37,11 +37,15 @@ def _close(got, want, atol=1e-6):
 
 
 @pytest.mark.parametrize("name", ["ArrayConfig", "DspConfig", "MimoConfig",
-                                  "TrackerConfig"])
+                                  "TrackerConfig", "TriangulationConfig",
+                                  "PipelineConfig", "Config"])
 def test_config_fields_match_jax_package(name):
-    ours = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}
-    ref = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}
-    assert ours == ref
+    def fields(cls):
+        return {f.name: (f.default if f.default is not dataclasses.MISSING
+                         else dataclasses.asdict(f.default_factory()))
+                for f in dataclasses.fields(cls)}
+
+    assert fields(getattr(tcfg, name)) == fields(getattr(jcfg, name))
 
 
 def test_realtime_profile_matches_jax_package_except_kernel_and_chunk():

@@ -204,7 +204,15 @@ def test_unknown_power_path_is_refused():
 
 
 def test_lattice_order_model_is_not_ported():
-    args = (ant.multi_array_cluster(256), tcfg.MimoConfig(rows=12, columns=12),
-            tcfg.DspConfig(), tcfg.ArrayConfig())
-    with pytest.raises(NotImplementedError):
-        tfd.make_fft_heatmap_model(*args, assume_lattice_order=True)
+    """The lattice-ordered model, once refused, is ported: on the 256-mic
+    cluster it has no permutation product, and its channel order is the
+    JAX model's (its powers: tests/test_torch_phat_lattice.py)."""
+    pts = ant.multi_array_cluster(256)
+    ours = tfd.make_fft_heatmap_model(
+        pts, tcfg.MimoConfig(rows=12, columns=12), tcfg.DspConfig(),
+        tcfg.ArrayConfig(), power_path="pallas", assume_lattice_order=True)
+    ref = jfd.make_fft_heatmap_model(
+        pts, jcfg.MimoConfig(rows=12, columns=12), jcfg.DspConfig(),
+        jcfg.ArrayConfig(), power_path="pallas", assume_lattice_order=True)
+    assert ours.perm_matrix is None and ref.perm_matrix is None
+    np.testing.assert_array_equal(ours.channel_perm, ref.channel_perm)
