@@ -406,6 +406,11 @@ class AwpuPipeline:
             prev_max=torch.stack([o.prev_max for o in outs]),
         )
 
+    @property
+    def miso_enabled(self) -> bool:
+        """Whether the pipeline runs the MISO listener."""
+        return self._enable["enable_miso"]
+
     def steer(self, theta: float, phi: float) -> None:
         """Pin the MISO listener (click-to-steer)."""
         self.state = self.state._replace(

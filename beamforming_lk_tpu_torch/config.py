@@ -48,6 +48,10 @@ class DspConfig:
     probe_compute: str = "float32"  # tracker/MISO probe-beam input dtype
     fused_chunk: int = 0         # blocks per launch of the replay chunk kernel
 
+    @property
+    def block_seconds(self) -> float:
+        return self.block_size / 48828.0
+
 
 @dataclasses.dataclass(frozen=True)
 class MimoConfig:

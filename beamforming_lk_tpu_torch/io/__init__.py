@@ -1,1 +1,2 @@
-"""Ring history and synthetic sources."""
+"""Host I/O: the ring history, synthetic sources, the FPGA wire format,
+pcap replay, UDP and native ingest, WAV/MP3/playback, gpsd and checkpoints."""

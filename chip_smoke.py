@@ -60,6 +60,26 @@ Phases (any failed check raises, so the exit code is non-zero):
 13. the realtime profile's fallback to the dense heatmap (a gain mask, 64
     mics), live (K1 per block, K4 per heatmap) and through
     ``process_blocks`` (K2 and K4 once per 12 blocks);
+13a. the CLI, ``beamforming_lk_tpu_torch.app.cli.main`` in this process on
+    the card, replaying a wire-format pcap of 96 blocks at 256 mics in the
+    realtime profile (``--realtime --mimo --tracking --miso --miso-wav
+    --output-dir --fps``): 8 K2 launches and no K1, the printed targets on
+    the source, the WAV's tone SNR, the last heatmap's peak on the source
+    cell, blocks/s and the host stages; then once more with ``--profile``:
+    the trace names the chunk kernel, and gives the device's busy time;
+13b. the CLI's live ingest over loopback at 256 mics (``--source native
+    --blocks 0 --realtime``): a sender process sends 1008 blocks of wire
+    packets at the wire rate (a block of 256 packets every 5.24 ms, in
+    groups of 32, one ``sendmmsg`` each); every block sent is processed or
+    counted as dropped by
+    the ingest, K1 once per processed block, lock, and the latency p50/p99
+    against the 5.24 ms budget (printed, not gated);
+13c. the CLI's default profile (no ``--realtime``) on a 24-block pcap at
+    64 mics: 11 K0 and 1 K4 launches per block, lock;
+13d. the CLI with two 256-mic links in one pcap (``--arrays 2 --realtime
+    --tracking --wara-ps --telemetry-file``), a source placed as in 9d: K1
+    once a block an array, every published GeoPoint, inverted, within
+    0.5 m of the source;
 14. one JSON line of kernel results (each kernel's time, its plain twin's,
     its bound from this run's operands and active rows against the H100's
     published peaks, and a library call's time where one exists), then
@@ -71,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -576,10 +597,10 @@ def compare_power(rows: int, compute: str, device):
                 bound_by=bound_by, library_ms=library_ms, fused_ms=fused_ms)
 
 
-def _source_cell(cfg):
-    src_xyz = np.array([math.sin(SOURCE[0]) * math.cos(SOURCE[1]),
-                        math.sin(SOURCE[0]) * math.sin(SOURCE[1]),
-                        math.cos(SOURCE[0])])
+def _source_cell(cfg, direction=SOURCE):
+    src_xyz = np.array([math.sin(direction[0]) * math.cos(direction[1]),
+                        math.sin(direction[0]) * math.sin(direction[1]),
+                        math.cos(direction[0])])
     rows, cols = cfg.mimo.rows, cfg.mimo.columns
     sep = math.sin(math.radians(cfg.mimo.fov_degrees / 2)) / (rows / 2)
     want_c = round((src_xyz[0] + (cols - 1) * sep / 2) / sep)
@@ -1494,7 +1515,364 @@ def run_fallback(device):
     return live["das_beam"] + replay["das_beam"], live_ms, replay_ms
 
 
+# The CLI phases' source: 20 deg off boresight, clear of the swarm's
+# boresight lock (ROADMAP §3), 5 kHz.
+CLI_SOURCE = (math.radians(20.0), math.radians(45.0))
+CLI_BLOCKS = 96                      # blocks in the replay and fusion captures
+LIVE_SENT_BLOCKS = 1008              # blocks the live sender sends
+SEND_GROUP = 32                      # packets per send burst: 8 a block
+GEO_BOUND_M = 0.5                    # a published GeoPoint's distance from the source
+
+
+def _cli(argv) -> str:
+    """``cli.main(argv + ["--device", "cuda"])`` in this process; raises
+    unless it returns 0; returns what it printed."""
+    import contextlib
+    import io
+
+    from beamforming_lk_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + ["--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    return buf.getvalue()
+
+
+def _cli_summary(out: str) -> dict:
+    """The JSON summary that ``--fps`` prints."""
+    return json.JSONDecoder().raw_decode(out[out.index("{\n"):])[0]
+
+
+def _cli_lock(what: str, out: str, direction, array: int = 0) -> float:
+    """Degrees between ``direction`` and the nearest target the CLI printed
+    for ``array``; raises unless within 5 deg."""
+    import re
+
+    found = re.findall(rf"array {array}: target theta=([-\d.]+) phi=([-\d.]+)", out)
+    off = [math.degrees(_angle(math.radians(float(t)), math.radians(float(p)),
+                               *direction)) for t, p in found]
+    if not off or min(off) > 5.0:
+        raise AssertionError(f"{what}: no target within 5 deg of the source: {found}")
+    return min(off)
+
+
+def _wire(channels: int, n: int, direction, seed: int) -> np.ndarray:
+    """``n`` blocks of a noisy 5 kHz plane wave from ``direction`` at the
+    CLI's ``channels`` mics, as wire packets [n * 256, PACKET_SIZE] uint8."""
+    from beamforming_lk_tpu_torch.io import packets as pk
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+
+    points = ant.multi_array_cluster(channels, 8, 8, 0.02)
+    rng = np.random.default_rng(seed)
+    return np.concatenate([np.frombuffer(pk.build_packets(
+        plane_wave_block(points, [(*direction, 5000.0)], b * 256, 256,
+                         noise_std=0.02, rng=rng), start_counter=b * 256),
+        np.uint8).reshape(256, pk.PACKET_SIZE) for b in range(n)])
+
+
+def _write_capture(path: str, links) -> None:
+    """A pcap of wire packets, link i on port 21844 + i, interleaved per
+    sample as simultaneous links appear on the wire."""
+    from beamforming_lk_tpu_torch.io import pcap as pc
+
+    pc.write_pcap(path, [(link[i].tobytes(), 21844 + a)
+                         for i in range(len(links[0]))
+                         for a, link in enumerate(links)])
+
+
+def _tone_snr_db(path: str) -> float:
+    """The 5 kHz tone's share of a WAV's power, in dB (the golden test's)."""
+    from beamforming_lk_tpu_torch.io.wav import read_wav
+
+    data, rate = read_wav(path)
+    x = data[0] - data[0].mean()
+    spec = np.abs(np.fft.rfft(x * np.hanning(x.size))) ** 2
+    freqs = np.fft.rfftfreq(x.size, 1.0 / rate)
+    tone = spec[np.abs(freqs - 5000.0) < 100.0].sum()
+    return float(10.0 * np.log10(tone / max(spec.sum() - tone, 1e-30)))
+
+
+def _stages(summary: dict) -> str:
+    return ", ".join(f"{k} {v['mean_ms']:.3f} ms x {v['calls']}"
+                     for k, v in summary["stages"].items())
+
+
+def _trace_split(path: str) -> dict:
+    """From a ``--profile`` Chrome trace: the kernels launched, the chunk
+    kernel's count, the device's busy ms and the traced span's ms."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e.get("dur", 0) for e in events)
+    return dict(kernels=len(kernels),
+                k2=sum("swarm_chunk_kernel" in e["name"] for e in kernels),
+                busy_ms=sum(e.get("dur", 0) for e in kernels) / 1e3,
+                span_ms=(t1 - t0) / 1e3)
+
+
+def run_cli_replay(tmp: str):
+    """Phase 13a: the CLI replaying a 96-block 256-mic pcap in the realtime
+    profile, twice (the second with ``--profile``).  Returns the K2
+    launches of both runs."""
+    from beamforming_lk_tpu_torch import Config, MimoConfig
+    from beamforming_lk_tpu_torch.app.awpu import AwpuPipeline
+    from beamforming_lk_tpu_torch.utils.profiling import TRACE_FILE
+
+    cap = os.path.join(tmp, "replay.pcap")
+    _write_capture(cap, [_wire(256, CLI_BLOCKS, CLI_SOURCE, seed=40)])
+    grid = Config(mimo=MimoConfig())
+    want = _source_cell(grid, CLI_SOURCE)[1]
+    base = ["--source", "pcap", "--pcap", cap, "--port", "21844", "--channels",
+            "256", "--realtime", "--mimo", "--tracking", "--miso", "--blocks",
+            str(CLI_BLOCKS), "--fps"]
+    real_heatmap, images = AwpuPipeline.heatmap, []
+
+    def heatmap(self):
+        images.append(real_heatmap(self))
+        return images[-1]
+
+    k2 = 0
+    for name in ("plain", "profiled"):
+        run = os.path.join(tmp, name)
+        prof = ["--profile", run] if name == "profiled" else []
+        wav = os.path.join(run, "beam.wav")
+        os.makedirs(run, exist_ok=True)
+        _reset_counts()
+        AwpuPipeline.heatmap = heatmap
+        try:
+            out = _cli(base + ["--miso-wav", wav, "--output-dir",
+                               os.path.join(run, "frames")] + prof)
+        finally:
+            AwpuPipeline.heatmap = real_heatmap
+        counts = _counts(swarm_chunk=CLI_BLOCKS // CHUNK)
+        k2 += counts["swarm_chunk"]
+        off = _cli_lock("CLI replay", out, CLI_SOURCE)
+        snr = _tone_snr_db(wav)
+        peak = divmod(int(np.argmax(images[-1])), images[-1].shape[1])
+        summary = _cli_summary(out)
+        if not snr > 10.0:
+            raise AssertionError(f"CLI replay: MISO WAV tone SNR {snr:.1f} dB <= 10")
+        if max(abs(peak[0] - want[0]), abs(peak[1] - want[1])) > 1:
+            raise AssertionError(f"CLI replay: last heatmap peak {peak}, source {want}")
+        if summary["blocks"] != CLI_BLOCKS:
+            raise AssertionError(f"CLI replay processed {summary['blocks']} blocks")
+        print(f"CLI pcap replay ({name}), 256 mics, realtime, {CLI_BLOCKS} blocks: "
+              f"{counts['swarm_chunk']} K2 + 0 K1 launches; target {off:.2f} deg off "
+              f"the source; last heatmap peak {peak} vs source {want}; MISO WAV "
+              f"tone SNR {snr:.1f} dB; {summary['blocks_per_s']:.1f} blocks/s "
+              f"({summary['realtime_factor']:.2f}x real time), latency p50 "
+              f"{summary['latency_p50_ms']:.4f} ms per block (a 12-block call / 12); "
+              f"stages: {_stages(summary)}", flush=True)
+        if prof:
+            split = _trace_split(os.path.join(run, TRACE_FILE))
+            if split["k2"] != CLI_BLOCKS // CHUNK:
+                raise AssertionError(f"CLI --profile trace names the chunk kernel "
+                                     f"{split['k2']} times: {split}")
+            print(f"  --profile trace: {split['kernels']} kernels, "
+                  f"swarm_chunk_kernel x {split['k2']}; device busy "
+                  f"{split['busy_ms'] / CLI_BLOCKS:.4f} ms/block, idle share "
+                  f"{1 - split['busy_ms'] / split['span_ms']:.4f} over the traced "
+                  f"{split['span_ms']:.1f} ms", flush=True)
+    return k2
+
+
+def _send_live(port: int, wire, n_blocks: int, result) -> None:
+    """The live phase's FPGA, in a process of its own (a sender thread in
+    the CLI's process would take the interpreter lock from it): once a
+    socket is bound at 127.0.0.1:``port``, send ``n_blocks`` blocks of the
+    ``wire`` packets, cycled, with consecutive counters, SEND_GROUP packets
+    a ``sendmmsg`` call at the wire rate; put (blocks sent, seconds, error)
+    on ``result``."""
+    import ctypes
+    import socket
+
+    from beamforming_lk_tpu_torch.io import packets as pk
+
+    class Iovec(ctypes.Structure):
+        _fields_ = [("base", ctypes.c_void_p), ("len", ctypes.c_size_t)]
+
+    class Msghdr(ctypes.Structure):
+        _fields_ = [("name", ctypes.c_void_p), ("namelen", ctypes.c_uint32),
+                    ("iov", ctypes.POINTER(Iovec)), ("iovlen", ctypes.c_size_t),
+                    ("control", ctypes.c_void_p), ("controllen", ctypes.c_size_t),
+                    ("flags", ctypes.c_int)]
+
+    class Mmsghdr(ctypes.Structure):
+        _fields_ = [("hdr", Msghdr), ("len", ctypes.c_uint)]
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    sent, seconds = 0, 0.0
+    try:
+        deadline = time.perf_counter() + 120.0
+        while True:
+            with open("/proc/net/udp") as f:
+                if any(line.split()[1].endswith(f":{port:04X}")
+                       for line in f.readlines()[1:]):
+                    break
+            if time.perf_counter() > deadline:
+                raise TimeoutError("the CLI's ingest never bound its port")
+            time.sleep(0.005)
+        counters = np.arange(256, dtype="<u4")
+        pkts = np.empty((256, pk.PACKET_SIZE), np.uint8)
+        iovs = (Iovec * 256)(*[Iovec(pkts.ctypes.data + k * pk.PACKET_SIZE,
+                                     pk.PACKET_SIZE) for k in range(256)])
+        msgs = (Mmsghdr * 256)()
+        for k in range(256):
+            msgs[k].hdr.iov, msgs[k].hdr.iovlen = ctypes.pointer(iovs[k]), 1
+        cycle = len(wire) // 256
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.connect(("127.0.0.1", port))
+            t0 = time.perf_counter()
+            for i in range(n_blocks):
+                b = i % cycle
+                pkts[:] = wire[b * 256:(b + 1) * 256]
+                pkts[:, 4:8] = (counters + i * 256).view(np.uint8).reshape(256, 4)
+                for g in range(0, 256, SEND_GROUP):
+                    wait = t0 + (i * 256 + g) / 48828.0 - time.perf_counter()
+                    if wait > 0:
+                        time.sleep(wait)
+                    done = 0
+                    while done < SEND_GROUP:
+                        n = libc.sendmmsg(sock.fileno(), ctypes.byref(
+                            msgs, (g + done) * ctypes.sizeof(Mmsghdr)),
+                            SEND_GROUP - done, 0)
+                        if n < 0:
+                            raise OSError(ctypes.get_errno(), "sendmmsg failed")
+                        done += n
+                sent += 1
+            seconds = time.perf_counter() - t0
+        result.put((sent, seconds, None))
+    except Exception as e:  # reported by the phase, which fails
+        result.put((sent, seconds, repr(e)))
+
+
+def run_cli_live():
+    """Phase 13b: the CLI's native ingest at 256 mics fed over loopback at
+    the wire rate by a sender process.  Returns the K1 launches."""
+    import multiprocessing
+    import queue
+    import socket
+
+    wire = _wire(256, CLI_BLOCKS, CLI_SOURCE, seed=41)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    result = ctx.Queue()
+    proc = ctx.Process(target=_send_live, args=(port, wire, LIVE_SENT_BLOCKS, result))
+    _reset_counts()
+    proc.start()
+    try:
+        out = _cli(["--source", "native", "--ip-address", "127.0.0.1", "--port",
+                    str(port), "--blocks", "0", "--channels", "256", "--realtime",
+                    "--mimo", "--tracking", "--miso", "--miso-wav",
+                    os.devnull, "--fps"])
+        try:
+            n_sent, seconds, error = result.get(timeout=60)
+        except queue.Empty:
+            n_sent, seconds, error = 0, 0.0, "no result from the sender"
+        proc.join(timeout=30)
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    if error is not None:
+        raise AssertionError(f"live sender failed: {error}")
+    sender = {"blocks": n_sent, "seconds": seconds}
+    summary = _cli_summary(out)
+    (ingest,) = summary["ingest"]
+    done = summary["blocks"]
+    counts = _counts(swarm_chain=done)
+    off = _cli_lock("CLI live", out, CLI_SOURCE)
+    if done + ingest["blocks_dropped"] != sender["blocks"]:
+        raise AssertionError(f"CLI live: {done} processed + "
+                             f"{ingest['blocks_dropped']} dropped != "
+                             f"{sender['blocks']} sent ({ingest})")
+    print(f"CLI live ingest (native, loopback), 256 mics, realtime: "
+          f"{done} blocks processed of {sender['blocks']} sent in "
+          f"{sender['seconds']:.3f} s (wire time "
+          f"{LIVE_SENT_BLOCKS * BUDGET_MS / 1e3:.3f} s); ingest "
+          f"blocks_dropped {ingest['blocks_dropped']}, counter_gaps "
+          f"{ingest['counter_gaps']}, packets {ingest['packets_received']}; "
+          f"{counts['swarm_chain']} K1 launches; target {off:.2f} deg off; "
+          f"latency p50 {summary['latency_p50_ms']:.4f} / p99 "
+          f"{summary['latency_p99_ms']:.4f} / max {summary['latency_max_ms']:.4f} "
+          f"ms over the last 512 blocks (budget {BUDGET_MS:.2f} ms, "
+          f"{summary['deadline_misses']} blocks over it); stages: "
+          f"{_stages(summary)}", flush=True)
+    return counts["swarm_chain"]
+
+
+def run_cli_default(tmp: str):
+    """Phase 13c: the CLI's default profile on a 24-block 64-mic pcap.
+    Returns (K0 launches, K4 launches)."""
+    n = 24
+    cap = os.path.join(tmp, "default.pcap")
+    _write_capture(cap, [_wire(64, n, CLI_SOURCE, seed=42)])
+    _reset_counts()
+    out = _cli(["--source", "pcap", "--pcap", cap, "--port", "21844", "--channels",
+                "64", "--mimo", "--tracking", "--miso", "--blocks", str(n), "--fps"])
+    counts = _counts(monopulse_chain=11 * n, das_beam=n)
+    off = _cli_lock("CLI default profile", out, CLI_SOURCE)
+    summary = _cli_summary(out)
+    print(f"CLI default profile, 64 mics, pcap, {n} blocks: "
+          f"{counts['monopulse_chain']} K0 + {counts['das_beam']} K4 launches "
+          f"(11 + 1 per block); target {off:.2f} deg off; "
+          f"{summary['blocks_per_s']:.1f} blocks/s; stages: {_stages(summary)}",
+          flush=True)
+    return counts["monopulse_chain"], counts["das_beam"]
+
+
+def run_cli_fusion(tmp: str):
+    """Phase 13d: two 256-mic links in one pcap through the CLI with fusion
+    and the WARA PS sink (tracker-only realtime: K1 once a block an
+    array).  Returns the K1 launches."""
+    cap = os.path.join(tmp, "two_links.pcap")
+    ndjson = os.path.join(tmp, "telemetry.ndjson")
+    target = np.asarray(FUSION_TARGET)
+    links = []
+    for a, pos in enumerate(FUSION_ARRAYS):
+        d = (target - np.asarray(pos)) / np.linalg.norm(target - np.asarray(pos))
+        links.append(_wire(256, CLI_BLOCKS, (math.acos(d[2]), math.atan2(d[1], d[0])),
+                           seed=43 + a))
+    _write_capture(cap, links)
+    lat0, lon0, alt0 = 57.76, 16.68, 10.0
+    _reset_counts()
+    out = _cli(["--source", "pcap", "--pcap", cap, "--port", "21844", "--port",
+                "21845", "--arrays", "2", "--channels", "256", "--realtime",
+                "--tracking", "--wara-ps", "--telemetry-file", ndjson, "--gps",
+                str(lat0), str(lon0), str(alt0), "--blocks", str(CLI_BLOCKS),
+                "--fps"])
+    counts = _counts(swarm_chain=2 * CLI_BLOCKS)
+    with open(ndjson) as f:
+        geo = [m["payload"] for m in map(json.loads, f)
+               if m["topic"] == "sensor/position"]
+    errs = []
+    for g in geo:    # heading 0: published (x, z, y)
+        x = (g["latitude"] - lat0) * 111111.0
+        z = (g["longitude"] - lon0) * 111111.0 * math.cos(math.radians(lat0))
+        errs.append(float(np.linalg.norm(np.array([x, g["altitude"] - alt0, z])
+                                         - target)))
+    if not errs or max(errs) > GEO_BOUND_M:
+        raise AssertionError(f"CLI fusion: GeoPoints {errs} m from the source "
+                             f"(bound {GEO_BOUND_M} m)")
+    best = [line for line in out.splitlines() if line.startswith("best track")]
+    print(f"CLI two-array fusion to GeoPoints, 256 mics, realtime, {CLI_BLOCKS} "
+          f"blocks: {counts['swarm_chain']} K1 launches (one a block an "
+          f"array); {len(errs)} GeoPoints, {max(errs):.4f} m at most "
+          f"from the source {FUSION_TARGET} (bound {GEO_BOUND_M} m); "
+          f"{best[0] if best else 'no best track line'}; stages: "
+          f"{_stages(_cli_summary(out))}", flush=True)
+    return counts["swarm_chain"]
+
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1571,6 +1949,13 @@ def main() -> int:
         launches["monopulse_chain"] += n_k0
         launches["das_beam"] += n_k4
     launches["das_beam"] += run_fallback("cuda")[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["swarm_chunk"] += run_cli_replay(tmp)
+        launches["swarm_chain"] += run_cli_live()
+        n_k0, n_k4 = run_cli_default(tmp)
+        launches["monopulse_chain"] += n_k0
+        launches["das_beam"] += n_k4
+        launches["swarm_chain"] += run_cli_fusion(tmp)
 
     def row(name, source, replaces, results, key):
         r = results[key]

@@ -19,6 +19,7 @@ from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
 from beamforming_lk_tpu_torch import convert  # noqa: E402
 from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
 from beamforming_lk_tpu_torch.app import awpu  # noqa: E402
+from beamforming_lk_tpu_torch.app import control  # noqa: E402
 from beamforming_lk_tpu_torch.io import checkpoint as ckpt  # noqa: E402
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block  # noqa: E402
 from beamforming_lk_tpu_torch.models import fusion, kalman  # noqa: E402
@@ -61,6 +62,17 @@ for i in range(2):
 kf = kalman.KalmanFilter3D(0.005, device="cpu")
 kf.update(kf.init(), [0.4, 0.6, 6.0])
 assert np.isfinite(out.powers.numpy()).all() and out.miso_beam.shape == (256,)
+from beamforming_lk_tpu_torch.app import cli, control, waraps
+from beamforming_lk_tpu_torch.io import audio_out, gps, native, packets, pcap, udp, wav
+from beamforming_lk_tpu_torch.ops import filters
+from beamforming_lk_tpu_torch.utils import (
+    colormap, metrics, overlay, png, profiling, video)
+with tempfile.TemporaryDirectory() as d:
+    assert cli.main(["--device", "cpu", "--blocks", "2", "--mimo-res", "16",
+                     "--tracking", "--miso", "--realtime", "--output-dir", d,
+                     "--render-every", "1", "--miso-wav", os.path.join(d, "b.wav"),
+                     "--arrays", "2", "--wara-ps", "--telemetry-file",
+                     os.path.join(d, "t.ndjson")]) == 0
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "beamforming_lk_tpu" or m.startswith("beamforming_lk_tpu.")]
 assert not loaded, loaded
@@ -97,6 +109,8 @@ _ENTRY_POINTS = {
                        lambda **kw: kalman.KalmanFilter3D(0.005, **kw)),
     "awpu_state_from_jax_checkpoint": (convert.awpu_state_from_jax_checkpoint,
                                        _restore_jax_checkpoint),
+    "ControlUnit": (control.ControlUnit,
+                    lambda **kw: control.ControlUnit(SMALL, n_arrays=2, **kw)),
 }
 
 
