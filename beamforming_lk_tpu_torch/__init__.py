@@ -6,10 +6,13 @@ Same layout and names as the JAX package (``ops``, ``io``, ``models``,
 the live step ``process_block`` and the chunked replay ``process_blocks``),
 in the default profile (``Config()``: the dense heatmap, the unfused
 tracker and MISO step) and with the tracker or MISO off, with the
-heatmap's SRP-PHAT and lattice-ordered models, auto-calibration
-(``calibrate``) and checkpoints (``save``, ``restore``); and the fusion of
-several arrays into 3D tracks (``models.fusion.TargetFusion``, with
-``models.kalman``).  Its hand-written
+heatmap's SRP-PHAT and lattice-ordered models, with the adaptive
+heatmaps in place of DAS (``heatmap_mode="mvdr"``: ``models.mvdr``, MVDR /
+Capon; ``"music"``: ``models.music``, wideband MUSIC; both plain torch),
+auto-calibration (``calibrate``) and checkpoints (``save``, ``restore``);
+the fusion of several arrays into 3D tracks (``models.fusion.TargetFusion``,
+with ``models.kalman``); and the CLI and control unit (``app.cli``,
+``app.control``).  Its hand-written
 CUDA kernels, one per TPU kernel of the JAX package:
 
 - ``csrc/swarm_chain.cu``: the monopulse chain K0, the per-block swarm

@@ -24,8 +24,10 @@ split into whole chunks, or that starts off the decimation phase, runs
 block by block.
 
 ``AwpuPipeline`` also calibrates the array from its carried history
-(``calibrate``) and saves and restores its state (``save``, ``restore``).
-Configurations outside the ported slices raise ``NotImplementedError``.
+(``calibrate``), saves and restores its state (``save``, ``restore``), and
+with ``heatmap_mode="mvdr"`` or ``"music"`` renders an adaptive estimator's
+spectrum (``models.mvdr``, ``models.music``) in place of the DAS heatmap.
+A mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from beamforming_lk_tpu_torch.io import checkpoint as ckpt
 from beamforming_lk_tpu_torch.io import ring as rg
 from beamforming_lk_tpu_torch.models import calibration as cal
 from beamforming_lk_tpu_torch.models import miso as ms
+from beamforming_lk_tpu_torch.models import music as mu
+from beamforming_lk_tpu_torch.models import mvdr as mv
 from beamforming_lk_tpu_torch.models import tracker as tk
 from beamforming_lk_tpu_torch.models.mimo import (
     make_mimo_grid, make_mimo_model, mimo_power, render_heatmap,
@@ -328,7 +332,15 @@ class AwpuPipeline:
     ``heatmap``, ``calibrate``, ``save`` and ``restore``.  It runs on the
     card unless ``device`` names the CPU, where the kernels' plain twins
     run.  Its own calls run f32 products without TF32 and leave the
-    caller's TF32 settings as they were (:func:`device.full_f32`)."""
+    caller's TF32 settings as they were (:func:`device.full_f32`).
+
+    ``heatmap_mode`` "mvdr" (Capon, its solve every ``mvdr_refresh``-th
+    block) or "music" (``music_solver``, ``music_sources`` = K) turns the
+    DAS heatmap off and runs the estimator on every block beside the
+    tracker and the MISO listener; ``heatmap()`` renders its spectrum.  As
+    in the JAX package, ``calibrate`` rebuilds only the DAS step (the
+    estimator keeps the mask it was built with), and ``save`` / ``restore``
+    carry the ``AwpuState`` alone, not the estimator's covariance."""
 
     #: The checkpoint key of the generator's state: the port's draws come
     #: from :attr:`generator`, where the JAX package carries ``.swarm/.key``.
@@ -338,9 +350,11 @@ class AwpuPipeline:
                  seed: int = 0, enable_mimo: bool = True,
                  enable_tracker: bool = True, enable_miso: bool = True,
                  heatmap_mode: str = "das", channels: Optional[int] = None,
-                 device="cuda"):
-        if heatmap_mode != "das":
-            raise _not_ported(f"heatmap_mode {heatmap_mode!r}")
+                 music_solver: str = "subspace", music_sources: int = 3,
+                 mvdr_refresh: int = 1, device="cuda"):
+        if heatmap_mode not in ("das", "mvdr", "music"):
+            raise ValueError(f"heatmap_mode must be 'das', 'mvdr' or 'music', "
+                             f"got {heatmap_mode!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         if points is None:
@@ -350,7 +364,8 @@ class AwpuPipeline:
             )
         self.points = np.asarray(points, np.float32)
         self.channel_mask = channel_mask
-        self._enable = dict(enable_mimo=enable_mimo,
+        self.heatmap_mode = heatmap_mode
+        self._enable = dict(enable_mimo=enable_mimo and heatmap_mode == "das",
                             enable_tracker=enable_tracker,
                             enable_miso=enable_miso)
         self.step = make_awpu_step(
@@ -361,11 +376,33 @@ class AwpuPipeline:
         self.state = awpu_init(cfg, self.points.shape[1], device=self.device,
                                generator=self.generator)
         self.last: Optional[AwpuOutputs] = None
+        # The adaptive estimator, its state, its last spectrum and the EMA
+        # of its rendered maxima (the JAX package's names).
+        self._mvdr_step = self._mvdr_state = self._mvdr_powers = None
+        if heatmap_mode != "das":
+            theta, phi = make_mimo_grid(cfg.mimo)
+            if heatmap_mode == "mvdr":
+                self._mvdr_step, _ = mv.make_mvdr_step(
+                    self.points, theta, phi, cfg.array,
+                    channel_mask=channel_mask, weight_refresh=mvdr_refresh,
+                    device=self.device)
+            else:
+                self._mvdr_step, _ = mu.make_music_step(
+                    self.points, theta, phi, cfg.array,
+                    channel_mask=channel_mask, solver=music_solver,
+                    n_sources=music_sources, device=self.device)
+            self._mvdr_state = self._mvdr_step.init()
+            self._mvdr_prev = torch.zeros((), dtype=torch.float32,
+                                          device=self.device)
 
     def process_block(self, block, draws=None) -> AwpuOutputs:
-        """Feed one [C, T] block (numpy or tensor) through the step."""
+        """Feed one [C, T] block (numpy or tensor) through the estimator, if
+        any, and the step."""
         block = torch.as_tensor(block, dtype=torch.float32, device=self.device)
         with full_f32():
+            if self._mvdr_step is not None:
+                self._mvdr_state, self._mvdr_powers = self._mvdr_step(
+                    self._mvdr_state, block)
             self.state, self.last = self.step(
                 self.state, block, generator=self.generator, draws=draws
             )
@@ -380,24 +417,28 @@ class AwpuPipeline:
         ``draws`` are :meth:`process_block`'s draws stacked over the M
         blocks."""
         blocks = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
-        if self.step.takes_chunks(self.state, blocks.shape[0]):
-            with full_f32():
+        with full_f32():
+            if self._mvdr_step is not None:
+                self._mvdr_state, powers = self._mvdr_step.scan(
+                    self._mvdr_state, blocks)
+                self._mvdr_powers = powers[-1]
+            if self.step.takes_chunks(self.state, blocks.shape[0]):
                 self.state, stacked = self.step.scan_chunks(
                     self.state, blocks, self.generator, draws
                 )
-            self.last = AwpuOutputs(
-                powers=stacked.powers[-1],
-                targets=tk.Targets(*(f[-1] for f in stacked.targets)),
-                miso_beam=stacked.miso_beam[-1],
-                prev_max=stacked.prev_max[-1],
-            )
-            return stacked
-        outs = [
-            self.process_block(
-                b, draws=None if draws is None else tuple(d[i] for d in draws)
-            )
-            for i, b in enumerate(blocks)
-        ]
+                self.last = AwpuOutputs(
+                    powers=stacked.powers[-1],
+                    targets=tk.Targets(*(f[-1] for f in stacked.targets)),
+                    miso_beam=stacked.miso_beam[-1],
+                    prev_max=stacked.prev_max[-1],
+                )
+                return stacked
+            outs = []
+            for i, b in enumerate(blocks):
+                self.state, self.last = self.step(
+                    self.state, b, generator=self.generator,
+                    draws=None if draws is None else tuple(d[i] for d in draws))
+                outs.append(self.last)
         return AwpuOutputs(
             powers=torch.stack([o.powers for o in outs]),
             targets=tk.Targets(*(torch.stack(f) for f in
@@ -426,8 +467,17 @@ class AwpuPipeline:
         return targets_to_list(self.last.targets)
 
     def heatmap(self):
-        """The last powers rendered to a uint8 [rows, cols] numpy image."""
+        """The last powers rendered to a uint8 [rows, cols] numpy image: the
+        estimator's spectrum, normalised by its maximum, when there is one
+        (each call advances the EMA of its maxima, as in the JAX package),
+        else the DAS heatmap."""
         mimo = self.cfg.mimo
+        if self._mvdr_powers is not None:
+            img, self._mvdr_prev = render_heatmap(
+                self._mvdr_powers, mimo.rows, mimo.columns, self._mvdr_prev,
+                ema_alpha=mimo.ema_alpha, use_db=mimo.use_db,
+            )
+            return img.cpu().numpy()
         if self.last is None:
             return np.zeros((mimo.rows, mimo.columns), np.uint8)
         img, _ = render_heatmap(

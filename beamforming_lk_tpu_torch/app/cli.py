@@ -6,8 +6,9 @@ Mirrors the reference's flag surface (``src/main.cpp:19-97``: ``--mimo
 --verbose ...``) plus the source selection the reference splits across
 binaries and udpreplay: ``--source synthetic|pcap|udp|native``, and
 ``--device cuda|cpu``: the card by default (raising on a host without
-CUDA), the CPU (the kernels' plain twins) when asked for.  ``--mvdr``,
-``--music`` raise ``NotImplementedError``: MVDR and MUSIC are not ported.
+CUDA), the CPU (the kernels' plain twins) when asked for.  ``--mvdr`` and
+``--music`` render the adaptive estimators (``models.mvdr``,
+``models.music``) in place of the DAS heatmap, on the same device.
 """
 
 from __future__ import annotations
@@ -78,11 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--colormap", choices=["jet", "ocean"], default="jet")
     p.add_argument("--blur", type=float, default=0.0, help="gaussian blur sigma")
     p.add_argument("--mvdr", action="store_true",
-                   help="adaptive (Capon) heatmap instead of DAS power "
-                        "(not ported: raises)")
+                   help="adaptive (Capon) heatmap instead of DAS power")
     p.add_argument("--music", action="store_true",
-                   help="MUSIC subspace DOA pseudo-spectrum heatmap "
-                        "(not ported: raises)")
+                   help="MUSIC subspace DOA pseudo-spectrum heatmap")
     p.add_argument("--music-sources", type=int, default=3,
                    help="MUSIC model order K (assumed number of "
                         "simultaneous sources; slight overestimates are "
@@ -95,9 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--music-solver", choices=["subspace", "eigh"],
                    default="subspace",
                    help="MUSIC decomposition: 'subspace' (default; "
-                        "warm-started signal-subspace tracking, ~80x "
-                        "faster) or 'eigh' (exact full "
-                        "eigendecomposition per bin)")
+                        "warm-started signal-subspace tracking) or 'eigh' "
+                        "(exact full eigendecomposition per bin)")
     p.add_argument("--realtime", action="store_true",
                    help="deployment profile: bf16 compute + fft heatmap + "
                         "2-iteration tracker cadence, the swarm kernel per "

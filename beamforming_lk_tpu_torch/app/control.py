@@ -48,10 +48,11 @@ class ControlUnit:
     """Top-level app: feeds per-array block sources through AWPU pipelines,
     fuses targets, renders frames.
 
-    ``heatmap_mode`` other than ``"das"`` and ``mesh`` raise the pipeline's
-    ``NotImplementedError`` (MVDR/MUSIC and multi-device are not ported);
-    ``music_solver``, ``music_sources`` and ``mvdr_refresh`` belong to
-    those modes."""
+    ``heatmap_mode`` "mvdr" or "music" renders each pipeline's adaptive
+    estimator in place of the DAS heatmap, with ``mvdr_refresh``,
+    ``music_solver`` and ``music_sources`` passed on to it; a ``mesh``
+    raises the pipeline's ``NotImplementedError`` (multi-device is not
+    ported)."""
 
     def __init__(
         self,
@@ -98,6 +99,9 @@ class ControlUnit:
                 enable_miso=enable_miso,
                 heatmap_mode=heatmap_mode,
                 channels=channels,
+                music_solver=music_solver,
+                music_sources=music_sources,
+                mvdr_refresh=mvdr_refresh,
                 device=self.device,
             )
             for i in range(n_arrays)

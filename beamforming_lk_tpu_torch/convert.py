@@ -15,6 +15,8 @@ from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.io.checkpoint import load_state
 from beamforming_lk_tpu_torch.models.mimo import MimoModel
 from beamforming_lk_tpu_torch.models.miso import MisoState
+from beamforming_lk_tpu_torch.models.music import MusicState
+from beamforming_lk_tpu_torch.models.mvdr import MvdrState
 from beamforming_lk_tpu_torch.models.tracker import Particles, SwarmState
 from beamforming_lk_tpu_torch.ops.fft_das import FftHeatmapModel
 
@@ -61,6 +63,29 @@ def awpu_state_from_jax(state, device=None) -> AwpuState:
         prev_max=_t(state.prev_max, device, torch.float32),
         block_index=int(np.asarray(state.block_index)),
         powers=_t(state.powers, device, torch.float32),
+    )
+
+
+def mvdr_state_from_jax(state, device=None) -> MvdrState:
+    """A JAX ``MvdrState`` whose leaves are numpy arrays -> the port's; the
+    counter becomes a host int."""
+    return MvdrState(
+        cov_re=_t(state.cov_re, device, torch.float32),
+        cov_im=_t(state.cov_im, device, torch.float32),
+        count=int(np.asarray(state.count)),
+        powers=None if state.powers is None else _t(state.powers, device,
+                                                    torch.float32),
+    )
+
+
+def music_state_from_jax(state, device=None) -> MusicState:
+    """A JAX ``MusicState`` whose leaves are numpy arrays -> the port's; the
+    counter becomes a host int."""
+    return MusicState(
+        cov_re=_t(state.cov_re, device, torch.float32),
+        cov_im=_t(state.cov_im, device, torch.float32),
+        count=int(np.asarray(state.count)),
+        basis=_t(state.basis, device, torch.float32),
     )
 
 

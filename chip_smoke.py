@@ -43,6 +43,20 @@ Phases (any failed check raises, so the exit code is non-zero):
 9d. two 256-mic arrays at x = -1, +1 m fused into a 3D track over 96
    blocks (``TargetFusion`` on the card), against the source and a numpy
    triangulation of the published rays, with the fusion step's time;
+9e. the adaptive heatmaps on the realtime profile's 64 x 64 grid: (a) each
+   estimator on the card against the CPU over 6 blocks (MVDR, MUSIC
+   subspace and eigh at 64 mics, MVDR at 256); (b) MVDR, MVDR with its
+   solve every 3rd block and MUSIC (subspace) in
+   ``AwpuPipeline(realtime(Config()), heatmap_mode=...)`` with the tracker
+   and MISO, 96 blocks through ``process_block`` at 64 and 256 mics: K1
+   once a block, the estimator's peak within one cell of the source, the
+   block's ms; (c) the estimator's ms a block alone (CUDA events), its
+   stage split and its bound; (d) the syncs a call of the estimator and of
+   the whole block after a warm one (``torch.cuda.set_sync_debug_mode``,
+   and whether the host waited behind a spin kernel): none for MVDR and
+   MUSIC subspace; (e) MUSIC eigh on 8 blocks at each size, timed;
+   (f) MVDR at 256 mics through ``process_blocks``: K2 once per 12 blocks,
+   the last powers equal to the ``process_block`` run's;
 10. the DAS-beam kernel (K4) against its twin at the heatmap's shapes (a
     64 x 64 grid, 64 and 256 mics, f32 and bf16, one window and a stack
     of 8), and the monopulse-chain kernel (K0) against its twin (64 and
@@ -80,6 +94,10 @@ Phases (any failed check raises, so the exit code is non-zero):
     --tracking --wara-ps --telemetry-file``), a source placed as in 9d: K1
     once a block an array, every published GeoPoint, inverted, within
     0.5 m of the source;
+13e. the CLI with ``--mvdr``, then ``--music`` (``--realtime --tracking
+    --miso --channels 64 --blocks 24 --output-dir --fps``, a synthetic
+    source placed as in 13a): K2 twice and no K1, frames written, the
+    target and the last heatmap's peak on the source, the stages;
 14. one JSON line of kernel results (each kernel's time, its plain twin's,
     its bound from this run's operands and active rows against the H100's
     published peaks, and a library call's time where one exists), then
@@ -1146,6 +1164,298 @@ def run_fusion(device):
     return counts["swarm_chain"], step_ms
 
 
+# Phase 9e: the adaptive heatmaps.  The pipelines' estimator settings, by
+# name; "music" is the subspace solver.
+ADAPTIVE = {"mvdr": dict(heatmap_mode="mvdr"),
+            "mvdr refresh 3": dict(heatmap_mode="mvdr", mvdr_refresh=3),
+            "music": dict(heatmap_mode="music")}
+ADAPTIVE_BLOCKS = 6                  # card vs CPU
+EIGH_BLOCKS = 8
+# Card vs CPU bounds, as in tests/test_torch_mvdr.py and test_torch_music.py:
+# MVDR's powers through a Cholesky whose conditioning the 1e-3 loading
+# bounds (rounding grows ~1e3-1e4x): 2e-3 relative.  MUSIC by its
+# invariants: the argmax cell, correlation, and log10 outside the top 4
+# cells; 1e-2 decades, as K = 3 above the one source puts the eigh split in
+# the noise floor, whose eigenvectors cuSOLVER and LAPACK pick differently.
+MVDR_RTOL = 2e-3
+MUSIC_CORR, MUSIC_LOG10 = 0.999, 1e-2
+SYNC_SPIN_MS = 200.0                 # the spin ahead of the calls whose syncs count
+
+
+def _estimator(channels: int, device, solver: str = "", **kw):
+    """(estimator, config, a namespace with its ``points``): the realtime
+    profile's estimator on its 64 x 64 grid, MVDR or MUSIC with
+    ``solver``."""
+    import types
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.models import music as mu
+    from beamforming_lk_tpu_torch.models import mvdr as mv
+    from beamforming_lk_tpu_torch.models.mimo import make_mimo_grid
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+
+    cfg = realtime(Config())
+    points = ant.multi_array_cluster(channels, 8, 8, 0.02)
+    theta, phi = make_mimo_grid(cfg.mimo)
+    if solver:
+        step = mu.make_music_step(points, theta, phi, cfg.array, solver=solver,
+                                  device=device, **kw)[0]
+    else:
+        step = mv.make_mvdr_step(points, theta, phi, cfg.array, device=device,
+                                 **kw)[0]
+    return step, cfg, types.SimpleNamespace(points=points)
+
+
+def _hold_estimates(what: str, got, want, music: bool) -> str:
+    """Card powers against the CPU's (the bounds above); returns a line."""
+    got, want = (x.cpu().double().numpy() for x in (got, want))
+    if not (np.isfinite(got).all() and got.argmax() == want.argmax()):
+        raise AssertionError(f"{what}: card argmax {got.argmax()}, CPU {want.argmax()}")
+    if music:
+        corr = float(np.corrcoef(got, want)[0, 1])
+        rest = np.argsort(want)[:-4]
+        dlog = float(np.abs(np.log10(got[rest]) - np.log10(want[rest])).max())
+        if not (corr > MUSIC_CORR and dlog <= MUSIC_LOG10):
+            raise AssertionError(f"{what}: correlation {corr}, log10 {dlog}")
+        return f"correlation {corr:.9f}, log10 off the top 4 cells {dlog:.3g}"
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    if not rel <= MVDR_RTOL:
+        raise AssertionError(f"{what}: card vs CPU {rel:.3g} > {MVDR_RTOL}")
+    return f"largest relative difference {rel:.3g} (tol {MVDR_RTOL})"
+
+
+def adaptive_card_vs_cpu(device):
+    """9e (a): each estimator on ``device`` and on the CPU over the same 6
+    plane-wave blocks: MVDR, MUSIC subspace and MUSIC eigh at 64 mics,
+    MVDR at 256."""
+    for channels, name, solver in ((64, "mvdr", ""), (64, "music subspace", "subspace"),
+                                   (64, "music eigh", "eigh"), (256, "mvdr", "")):
+        (card, cfg, array), (host, _, _) = (_estimator(channels, dev, solver)
+                                            for dev in (device, "cpu"))
+        blocks = _plane_wave_blocks(array, cfg, channels, "cpu", ADAPTIVE_BLOCKS)
+        out = []
+        for step in (card, host):
+            state = step.init()
+            for blk in blocks:
+                state, p = step(state, blk.to(step.v_emb.device))
+            out.append(p.cpu())
+        line = _hold_estimates(f"{name} {channels} mics", *out, bool(solver))
+        peak = check_map(f"{name} {channels} mics card", cfg, out[0])[0]
+        print(f"9e card vs CPU, {name}, {channels} mics, {ADAPTIVE_BLOCKS} blocks: "
+              f"argmax equal, peak {peak}; {line}", flush=True)
+
+
+def _syncs(fn) -> dict:
+    """The host syncs of one call of ``fn`` after a warm one, under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (each "synchronizing CUDA
+    operation" warning a sync torch makes), behind a SYNC_SPIN_MS spin
+    kernel.  Returns the syncs, the first one's place, whether the host
+    waited for the spin (a wait inside a library that torch does not see
+    included) and the host's ms (its enqueue, where it did not wait).  One
+    call launches at most a few hundred kernels, which the launch queue
+    holds behind the spin."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SYNC_SPIN_MS * 2e6))          # ~2e6 cycles/ms
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        h0 = time.perf_counter()
+        try:
+            fn()
+        finally:
+            host_ms = (time.perf_counter() - h0) * 1e3
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in seen if "called a synchronizing" in str(w.message)]
+    where = (f"{os.path.basename(syncs[0].filename)}:{syncs[0].lineno}"
+             if syncs else "")
+    return dict(n=len(syncs), where=where,
+                waited=host_ms > 0.75 * SYNC_SPIN_MS, host_ms=host_ms)
+
+
+def _sync_line(label: str, r: dict) -> str:
+    return (f"{label} {r['n']}{' at ' + r['where'] if r['where'] else ''} "
+            f"(host waited: {r['waited']}; host {r['host_ms']:.4f} ms)")
+
+
+def _spun_ms(calls) -> float:
+    """Mean device ms of each of ``calls`` (run in order), each behind a
+    ~20 ms spin kernel that holds the device while the host enqueues it,
+    so that CUDA events time the device's work even where one call
+    launches hundreds of kernels (a run of such calls fills the launch
+    queue and is timed at the host's pace)."""
+    import torch
+
+    spans = []
+    for fn in calls:
+        torch.cuda._sleep(40_000_000)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        spans.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+
+
+def _estimator_ms(step, state, block, n: int = 6) -> float:
+    """Device ms a block of ``n`` chained estimator calls (a refresh cycle's
+    mean where the step decimates its solve)."""
+    box = [state]
+
+    def call():
+        box[0], _ = step(box[0], block)
+    return _spun_ms([call] * n)
+
+
+def _stage_split(step, state, block) -> dict:
+    """Device ms of the estimator's stages on a warm state: the covariance,
+    the factorisation (Cholesky; QR rounds or eigh) and the direction
+    stage."""
+    from beamforming_lk_tpu_torch.models.mvdr import hermitian_embed
+
+    cov = step.covariance(state, block)
+    split = {"covariance": _spun_ms([lambda: step.covariance(state, block)] * 5)}
+    if hasattr(step, "factor"):
+        chol = step.factor(*cov)
+        return {**split, "cholesky": _spun_ms([lambda: step.factor(*cov)] * 5),
+                "directions": _spun_ms([lambda: step.directions(chol)] * 5)}
+    m = hermitian_embed(*cov)
+    sub = step.subspaces(m, state)
+    return {**split, "subspaces": _spun_ms([lambda: step.subspaces(m, state)] * 5),
+            "directions": _spun_ms([lambda: step.spectrum(*sub[:3])] * 5)}
+
+
+def _adaptive_bound(step) -> tuple:
+    """(ms, binding) of MVDR's least time (Cholesky and triangular solve
+    operations, the steering planes' bytes) or MUSIC subspace's (its
+    projection's operations, the same bytes), against the f32 peak."""
+    f, d, c2 = step.n_bins, step.n_directions, 2 * step.channels
+    nbytes = _nbytes(step.v_emb)
+    if hasattr(step, "factor"):
+        return bound(f * c2 ** 2 * d + f * c2 ** 3 / 3, nbytes)
+    return bound(2.0 * f * d * c2 * 2 * step.n_sources, nbytes)
+
+
+def run_adaptive(channels: int, device):
+    """9e (b)-(d) at ``channels`` mics: for each of ADAPTIVE, the realtime
+    pipeline with the tracker and MISO on over 96 plane-wave blocks through
+    ``process_block`` (K1 once a block, the estimator's peak within one cell
+    of the source), the whole block's ms; the estimator's ms a block from
+    CUDA events around each of 6 chained calls of it alone and its stage
+    split; the syncs of a call of the estimator and of a pipeline block,
+    none allowed.  Returns (K1 launches, the
+    ``process_block`` run's last MVDR powers)."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = realtime(Config())
+    k1, mvdr_last = 0, None
+    for name, kw in ADAPTIVE.items():
+        pipe = AwpuPipeline(cfg, channels=channels, seed=0, device=device, **kw)
+        blocks = _plane_wave_blocks(pipe, cfg, channels, device)
+        _reset_counts()
+        _, ms, host_ms = _timed_blocks(pipe, blocks, 16)
+        k1 += _counts(swarm_chain=N_BLOCKS)["swarm_chain"]
+        peak, want = check_map(f"9e {name} {channels} mics", cfg, pipe._mvdr_powers)
+        img = pipe.heatmap()
+        if divmod(int(img.argmax()), img.shape[1]) != peak:
+            raise AssertionError(f"9e {name}: heatmap image peak differs from {peak}")
+        if name == "mvdr":
+            mvdr_last = pipe._mvdr_powers.clone()
+        step, state = pipe._mvdr_step, pipe._mvdr_state
+        est_ms = _estimator_ms(step, state, blocks[0])
+        split = _stage_split(step, state, blocks[0])
+        b_ms, b_by = _adaptive_bound(step)
+        est = _syncs(lambda: step(state, blocks[0]))
+        blk = _syncs(lambda: pipe.process_block(blocks[0]))
+        _reset_counts()
+        print(f"9e {name}, {channels} mics, realtime + tracker + MISO, {N_BLOCKS} "
+              f"blocks: {N_BLOCKS} K1 launches; estimator peak {peak} vs source "
+              f"{want}; block {ms:.4f} ms device, {host_ms:.4f} ms host (budget "
+              f"{BUDGET_MS:.2f} ms); estimator alone {est_ms:.4f} ms a block "
+              f"(bound {b_ms:.4f} ms, {b_by}; stages " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items()) + " ms); syncs: "
+              + _sync_line("estimator", est) + ", " + _sync_line("whole block", blk),
+              flush=True)
+        # MVDR and MUSIC's subspace solver wait on nothing: the counters are
+        # host ints and the Cholesky's info stays on the card.
+        for what, r in (("estimator", est), ("block", blk)):
+            if r["n"] or r["waited"]:
+                raise AssertionError(f"9e {name} {channels} mics: the {what} syncs: {r}")
+    return k1, mvdr_last
+
+
+def run_eigh(channels: int, device):
+    """9e (e): MUSIC with ``solver="eigh"`` on 8 blocks, timed: device ms
+    over the run (CUDA events) and host ms, the peak within one cell."""
+    import torch
+
+    step, cfg, array = _estimator(channels, device, "eigh")
+    blocks = _plane_wave_blocks(array, cfg, channels, device, EIGH_BLOCKS)
+    state = step.init()
+    state, p = step(state, blocks[0])
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    h0 = time.perf_counter()
+    for blk in blocks[1:]:
+        state, p = step(state, blk)
+    e1.record()
+    torch.cuda.synchronize()
+    n = EIGH_BLOCKS - 1
+    host_ms = (time.perf_counter() - h0) * 1e3 / n
+    peak, want = check_map(f"9e music eigh {channels} mics", cfg, p)
+    sync = _syncs(lambda: step(state, blocks[0]))
+    print(f"9e music eigh, {channels} mics, {EIGH_BLOCKS} blocks: peak {peak} vs "
+          f"source {want}; {e0.elapsed_time(e1) / n:.4f} ms a block device, "
+          f"{host_ms:.4f} ms host (budget {BUDGET_MS:.2f} ms); "
+          + _sync_line("syncs", sync), flush=True)
+
+
+def run_adaptive_replay(device, live_powers):
+    """9e (f): MVDR at 256 mics with the tracker and MISO on, 96 blocks
+    through ``process_blocks`` (24 then 72): K2 once per 12 blocks, no K1,
+    and the estimator's last powers equal to the ``process_block`` run's
+    (the same blocks, ``live_powers``) within 1e-6 relative.  Returns the
+    K2 launches."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+
+    cfg = realtime(Config())
+    pipe = AwpuPipeline(cfg, channels=256, seed=0, device=device, heatmap_mode="mvdr")
+    blocks = _plane_wave_blocks(pipe, cfg, 256, device)
+    _reset_counts()
+    pipe.process_blocks(blocks[:24])
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    pipe.process_blocks(blocks[24:])
+    e1.record()
+    torch.cuda.synchronize()
+    counts = _counts(swarm_chunk=N_BLOCKS // CHUNK)
+    rel = float(((pipe._mvdr_powers - live_powers).abs().max()
+                 / live_powers.abs().max()))
+    if not rel <= 1e-6:
+        raise AssertionError(f"9e MVDR replay vs process_block: {rel:.3g}")
+    check_map("9e mvdr replay 256 mics", cfg, pipe._mvdr_powers)
+    print(f"9e mvdr replay, 256 mics, {N_BLOCKS} blocks: {counts['swarm_chunk']} K2 "
+          f"+ 0 K1 launches; last powers vs process_block's {rel:.3g} relative "
+          f"(bitwise: {torch.equal(pipe._mvdr_powers, live_powers)}); "
+          f"{e0.elapsed_time(e1) / (N_BLOCKS - 24):.4f} ms a block device",
+          flush=True)
+    return counts["swarm_chunk"]
+
+
 def das_operands(channels: int, device, interp: str = "linear"):
     """The default profile's heatmap model (the 64 x 64 grid's delay split
     at ``channels`` mics, linear or the FIR bank's) and a stack of 8
@@ -1870,6 +2180,52 @@ def run_cli_fusion(tmp: str):
     return counts["swarm_chain"]
 
 
+def run_cli_adaptive(tmp: str):
+    """Phase 13e: the CLI with ``--mvdr`` and then ``--music`` on a 24-block
+    synthetic source at 64 mics, realtime with the tracker and MISO (12
+    blocks a call: K2 twice, no K1): frames written, the printed target and
+    the last heatmap's peak on the source.  Returns the K2 launches."""
+    from beamforming_lk_tpu_torch import Config, MimoConfig
+    from beamforming_lk_tpu_torch.app.awpu import AwpuPipeline
+
+    n = 24
+    want = _source_cell(Config(mimo=MimoConfig()), CLI_SOURCE)[1]
+    real_heatmap, images = AwpuPipeline.heatmap, []
+
+    def heatmap(self):
+        images.append(real_heatmap(self))
+        return images[-1]
+
+    k2 = 0
+    for flag in ("--mvdr", "--music"):
+        frames = os.path.join(tmp, f"frames{flag}")
+        _reset_counts()
+        AwpuPipeline.heatmap = heatmap
+        try:
+            out = _cli([flag, "--realtime", "--tracking", "--miso", "--channels", "64",
+                        "--blocks", str(n), "--output-dir", frames, "--fps",
+                        "--synthetic-source", f"{math.degrees(CLI_SOURCE[0])}",
+                        f"{math.degrees(CLI_SOURCE[1])}", "5000"])
+        finally:
+            AwpuPipeline.heatmap = real_heatmap
+        counts = _counts(swarm_chunk=n // CHUNK)
+        k2 += counts["swarm_chunk"]
+        off = _cli_lock(f"CLI {flag}", out, CLI_SOURCE)
+        peak = divmod(int(np.argmax(images[-1])), images[-1].shape[1])
+        written = sorted(os.listdir(frames))
+        if not written:
+            raise AssertionError(f"CLI {flag}: no frames written")
+        if max(abs(peak[0] - want[0]), abs(peak[1] - want[1])) > 1:
+            raise AssertionError(f"CLI {flag}: last heatmap peak {peak}, source {want}")
+        summary = _cli_summary(out)
+        print(f"CLI {flag}, 64 mics, realtime + tracker + MISO, synthetic, {n} "
+              f"blocks: {counts['swarm_chunk']} K2 + 0 K1 launches; {len(written)} "
+              f"frames; target {off:.2f} deg off; last heatmap peak {peak} vs source "
+              f"{want}; {summary['blocks_per_s']:.1f} blocks/s; stages: "
+              f"{_stages(summary)}", flush=True)
+    return k2
+
+
 def main() -> int:
     import tempfile
 
@@ -1935,6 +2291,13 @@ def main() -> int:
     launches["swarm_chain"] += n_k1
     launches["swarm_chunk"] += n_k2
     launches["swarm_chain"] += run_fusion("cuda")[0]
+    adaptive_card_vs_cpu("cuda")
+    mvdr_live = None
+    for ch in (64, 256):
+        n_k1, mvdr_live = run_adaptive(ch, "cuda")
+        launches["swarm_chain"] += n_k1
+        run_eigh(ch, "cuda")
+    launches["swarm_chunk"] += run_adaptive_replay("cuda", mvdr_live)
     k4, k0 = {}, {}
     for ch in (64, 256):
         for compute in ("float32", "bfloat16"):
@@ -1956,6 +2319,7 @@ def main() -> int:
         launches["monopulse_chain"] += n_k0
         launches["das_beam"] += n_k4
         launches["swarm_chain"] += run_cli_fusion(tmp)
+        launches["swarm_chunk"] += run_cli_adaptive(tmp)
 
     def row(name, source, replaces, results, key):
         r = results[key]

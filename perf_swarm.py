@@ -5,6 +5,8 @@
     python3 perf_swarm.py phases     # K1 with fewer iterations and sub-steps
     python3 perf_swarm.py profile    # realtime live and replay at 64 and 256 mics
     python3 perf_swarm.py default    # the default profile at 64 and 256 mics
+    python3 perf_swarm.py adaptive   # realtime live with MVDR, MVDR refresh 3
+                                     # and MUSIC at 64 and 256 mics
     python3 perf_swarm.py versus DIR # K3, K0, K4, K1 and K2 of a checkout at DIR
                                      # against this tree's, in turns
     python3 perf_swarm.py ablate     # K4 with parts of its inner step cut out
@@ -24,6 +26,9 @@ plane-wave blocks: wall and host-enqueue ms per block over 48 blocks
 after 24 warm ones, ``torch.profiler``'s device busy time, kernel times,
 kernels and idle share per block over 48 more, and the per-block latency
 (``process_block`` + synchronize) over 1200 blocks (``default``: 1008).
+``adaptive`` takes the same columns of the realtime profile live, tracker
+and MISO on, with each of ``chip_smoke.ADAPTIVE``'s estimators in place of
+the DAS heatmap (``heatmap_mode``), latency over 1008 blocks.
 ``versus`` loads the kernel wrappers of another checkout of the repo (the
 parent commit, unpacked with ``git archive``), builds its sources beside
 this tree's, and on ``chip_smoke.py``'s operands holds its K3 outputs
@@ -305,10 +310,11 @@ def _run(pipe, blocks, replay: bool):
     return out
 
 
-def _profile(cfg, modes, n_latency: int) -> dict:
+def _profile(cfg, modes, n_latency: int, **pipe_kw) -> dict:
     """The profile columns of ``cfg`` at 64 and 256 mics for each mode
     ("live": ``process_block``; "replay": ``process_blocks``), then the
-    latency over ``n_latency`` live blocks after 24 warm ones."""
+    latency over ``n_latency`` live blocks after 24 warm ones; ``pipe_kw``
+    go to each ``AwpuPipeline``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -318,7 +324,7 @@ def _profile(cfg, modes, n_latency: int) -> dict:
     out = {}
     for ch in (64, 256):
         for mode in modes:
-            pipe = AwpuPipeline(cfg, channels=ch, seed=0, device="cuda")
+            pipe = AwpuPipeline(cfg, channels=ch, seed=0, device="cuda", **pipe_kw)
             blocks = cs._plane_wave_blocks(pipe, cfg, ch, "cuda")
             replay = mode == "replay"
             _run(pipe, blocks[:24], replay)
@@ -339,7 +345,7 @@ def _profile(cfg, modes, n_latency: int) -> dict:
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in row.items()), flush=True)
     for ch in (64, 256):
-        pipe = AwpuPipeline(cfg, channels=ch, seed=0, device="cuda")
+        pipe = AwpuPipeline(cfg, channels=ch, seed=0, device="cuda", **pipe_kw)
         blocks = cs._plane_wave_blocks(pipe, cfg, ch, "cuda")
         lat = []
         for i in range(24 + n_latency):
@@ -364,6 +370,16 @@ def profile() -> dict:
 
 def default() -> dict:
     return _profile(cs.default_config(), ("live",), 1008)
+
+
+def adaptive() -> dict:
+    from beamforming_lk_tpu_torch import Config, realtime
+
+    out = {}
+    for name, kw in cs.ADAPTIVE.items():
+        print(f"-- {name}", flush=True)
+        out[name] = _profile(realtime(Config()), ("live",), 1008, **kw)
+    return out
 
 
 def _load_other(root: str, module: str):
@@ -471,7 +487,8 @@ def main() -> int:
         raise SystemExit("perf_swarm: no CUDA device; this runs on the card")
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     runs = {"clusters": clusters, "phases": phases, "profile": profile,
-            "default": default, "versus": versus, "ablate": ablate,
+            "default": default, "adaptive": adaptive, "versus": versus,
+            "ablate": ablate,
             "ablate3": ablate3}
     if what not in runs or (what == "versus") != (len(sys.argv) == 3):
         raise SystemExit(__doc__)

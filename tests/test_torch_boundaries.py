@@ -1,6 +1,7 @@
 """Boundaries of the port: it loads no JAX, dispatches its kernels on the
 device of their tensors, runs every configuration of the ported slices and
-raises NotImplementedError for every configuration outside them."""
+raises NotImplementedError for every configuration outside them (a
+mesh)."""
 
 import dataclasses
 import inspect
@@ -23,6 +24,9 @@ from beamforming_lk_tpu_torch.app import control  # noqa: E402
 from beamforming_lk_tpu_torch.io import checkpoint as ckpt  # noqa: E402
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block  # noqa: E402
 from beamforming_lk_tpu_torch.models import fusion, kalman  # noqa: E402
+from beamforming_lk_tpu_torch.models import music as mu  # noqa: E402
+from beamforming_lk_tpu_torch.models import mvdr as mv  # noqa: E402
+from beamforming_lk_tpu_torch.models.mimo import make_mimo_grid  # noqa: E402
 from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_das as cd  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
@@ -62,6 +66,11 @@ for i in range(2):
 kf = kalman.KalmanFilter3D(0.005, device="cpu")
 kf.update(kf.init(), [0.4, 0.6, 6.0])
 assert np.isfinite(out.powers.numpy()).all() and out.miso_beam.shape == (256,)
+from beamforming_lk_tpu_torch.models import music, mvdr
+for mode in ("mvdr", "music"):
+    pipe = AwpuPipeline(cfg, device="cpu", heatmap_mode=mode)
+    pipe.process_blocks(np.stack(blocks[:2]))
+    assert pipe.heatmap().max() == 255
 from beamforming_lk_tpu_torch.app import cli, control, waraps
 from beamforming_lk_tpu_torch.io import audio_out, gps, native, packets, pcap, udp, wav
 from beamforming_lk_tpu_torch.ops import filters
@@ -111,6 +120,12 @@ _ENTRY_POINTS = {
                                        _restore_jax_checkpoint),
     "ControlUnit": (control.ControlUnit,
                     lambda **kw: control.ControlUnit(SMALL, n_arrays=2, **kw)),
+    "make_mvdr_step": (mv.make_mvdr_step, lambda **kw: mv.make_mvdr_step(
+        ant.create_antenna_grid(), *make_mimo_grid(SMALL.mimo), **kw)),
+    "mvdr_init": (mv.mvdr_init, lambda **kw: mv.mvdr_init(11, 64, 256, **kw)),
+    "make_music_step": (mu.make_music_step, lambda **kw: mu.make_music_step(
+        ant.create_antenna_grid(), *make_mimo_grid(SMALL.mimo), **kw)),
+    "music_init": (mu.music_init, lambda **kw: mu.music_init(11, 64, **kw)),
 }
 
 
@@ -201,14 +216,14 @@ def _replace(cfg, part, **kw):
 
 _OUTSIDE = {
     "mesh": dict(kwargs=dict(mesh=object())),
-    "mvdr": dict(kwargs=dict(heatmap_mode="mvdr")),
-    "music": dict(kwargs=dict(heatmap_mode="music")),
 }
 
 # Configurations of the default-profile slice (the unfused tracker and
 # MISO steps, the XLA-chain backend, the dense heatmap and the fft
-# backend's fallback to it) and SRP-PHAT.
+# backend's fallback to it), SRP-PHAT, and the adaptive heatmaps.
 _INSIDE = {
+    "mvdr": dict(kwargs=dict(heatmap_mode="mvdr")),
+    "music": dict(kwargs=dict(heatmap_mode="music")),
     "phat": dict(cfg=_replace(SMALL, "mimo", phat=True)),
     "tracker_off": dict(kwargs=dict(enable_tracker=False)),
     "miso_off": dict(kwargs=dict(enable_miso=False)),
@@ -232,7 +247,8 @@ def test_outside_the_slice_raises(case):
 @pytest.mark.parametrize("case", sorted(_INSIDE))
 def test_inside_the_slice_runs_two_blocks(case):
     """Each configuration builds on the CPU and runs 2 blocks of a plane
-    wave: finite heatmap powers, a beam of one block, targets of every
+    wave: finite heatmap powers (the estimator's in the adaptive modes,
+    where the DAS heatmap is off), a beam of one block, targets of every
     tracker (zero beam or zero targets where MISO or the tracker is off)."""
     spec = _INSIDE[case]
     kwargs = spec.get("kwargs", {})
@@ -241,8 +257,12 @@ def test_inside_the_slice_runs_two_blocks(case):
         out = pipe.process_block(plane_wave_block(
             pipe.points, [(0.5, 1.2, 5e3)], i * 256, 256,
             rng=np.random.default_rng(i)))
-    assert out.powers.shape == (256,) and torch.isfinite(out.powers).all()
-    assert out.powers.max() > 0
+    powers = out.powers
+    if "heatmap_mode" in kwargs:
+        assert not out.powers.any()
+        powers = pipe._mvdr_powers
+    assert powers.shape == (256,) and torch.isfinite(powers).all()
+    assert powers.max() > 0
     assert out.miso_beam.shape == (256,) and out.targets.valid.shape == (4,)
     assert out.miso_beam.any() == kwargs.get("enable_miso", True)
     if not kwargs.get("enable_tracker", True):

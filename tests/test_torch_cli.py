@@ -1,7 +1,8 @@
 """The port's CLI, ``python -m beamforming_lk_tpu_torch.app.cli``, on the
 CPU (``--device cpu``): the JAX package's CLI cases, its sources (pcap,
-UDP, native ingest), its profile and state flags, what it refuses, and
-parity with the JAX CLI on one capture."""
+UDP, native ingest), its profile and state flags, the adaptive heatmaps
+(--mvdr, --music), what it refuses, and parity with the JAX CLI on one
+capture and one synthetic source."""
 
 import json
 import math
@@ -151,14 +152,61 @@ def test_cli_realtime_profile_and_replay_batch(monkeypatch):
     assert cfg.tracker.probe_kernel == "pallas" and cfg.dsp.fused_chunk == 12
 
 
+ADAPTIVE = ["--blocks", "6", "--mimo-res", "16", "--render-every", "3", "--fps",
+            "--synthetic-source", "25", "60", "4000"]
+
+
 @pytest.mark.parametrize("flag", ["--mvdr", "--music"])
-def test_cli_not_ported_estimators_raise(flag, tmp_path):
-    """--mvdr and --music raise the port's not-ported error before a block
-    runs; they never render the DAS heatmap in their place."""
+def test_cli_adaptive_estimators_run(flag, tmp_path, capsys):
+    """--mvdr and --music render the estimator (the JAX package's
+    ``test_control.py::test_cli_mvdr_smoke``, and --music): frames written,
+    6 blocks, and the estimator's options reach the pipeline."""
+    from beamforming_lk_tpu_torch.app import control
+
+    units = []
+    real_init = control.ControlUnit.__init__
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        units.append(self)
+
     out_dir = str(tmp_path / "frames")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _main([flag, "--blocks", "2", "--mimo-res", "16", "--output-dir", out_dir])
-    assert not os.path.exists(out_dir)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(control.ControlUnit, "__init__", init)
+        assert _main([flag, "--output-dir", out_dir, "--music-solver", "eigh",
+                      "--music-sources", "2", "--mvdr-refresh", "2"] + ADAPTIVE) == 0
+    assert len(os.listdir(out_dir)) == 2
+    assert _summary(capsys.readouterr().out)["blocks"] == 6
+    (pipe,) = units[0].pipelines
+    assert pipe.heatmap_mode == flag[2:] and pipe._mvdr_state.count == 6
+    est = pipe._mvdr_step
+    assert (est.weight_refresh == 2 if flag == "--mvdr"
+            else (est.solver, est.n_sources) == ("eigh", 2))
+
+
+@pytest.mark.parametrize("flag", ["--mvdr", "--music"])
+def test_cli_adaptive_matches_jax_cli(flag, tmp_path, monkeypatch):
+    """One synthetic source through both CLIs: both write their frames, and
+    every rendered heatmap peaks on the same cell, the source's."""
+    from beamforming_lk_tpu.app import awpu as jawpu
+    from beamforming_lk_tpu.app import cli as jcli
+    from beamforming_lk_tpu_torch.app import awpu
+
+    peaks = {}
+    for name, main, module, dev in (("port", cli.main, awpu, ["--device", "cpu"]),
+                                    ("jax", jcli.main, jawpu, [])):
+        images = _record_heatmaps(monkeypatch, module)
+        out_dir = str(tmp_path / name)
+        assert main([flag, "--output-dir", out_dir] + ADAPTIVE + dev) == 0
+        assert len(os.listdir(out_dir)) == 2
+        peaks[name] = [np.unravel_index(img.argmax(), img.shape) for img in images]
+    assert peaks["port"] == peaks["jax"] and len(peaks["port"]) == 2
+    theta, phi = (math.radians(a) for a in (25.0, 60.0))
+    x, y = math.sin(theta) * math.cos(phi), math.sin(theta) * math.sin(phi)
+    sep = 1.0 / 8              # sin(90 deg) over half the 16 rows
+    want = (round(y / sep + 7.5), round(x / sep + 7.5))
+    r, c = peaks["port"][-1]
+    assert max(abs(r - want[0]), abs(c - want[1])) <= 1, (peaks, want)
 
 
 def test_cli_defaults_to_cuda(monkeypatch):

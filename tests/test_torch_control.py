@@ -1,8 +1,8 @@
 """The port's control unit on the CPU: the multi-array run loop, fusion to
 a 3D best track, frame rendering, MISO WAV/MP3/playback, recording and
 click-to-steer (the JAX package's control-unit cases, on ``device="cpu"``),
-and what the port's unit adds: its device, its stage timer, its
-not-ported modes."""
+the adaptive heatmaps, and what the port's unit adds: its device, its
+stage timer, its not-ported mesh."""
 
 import os
 
@@ -320,13 +320,38 @@ def test_control_unit_camera_underlay():
     assert not np.array_equal(with_cam, without)
 
 
-@pytest.mark.parametrize("kw", [dict(heatmap_mode="mvdr"), dict(heatmap_mode="music"),
-                                dict(mesh=object())], ids=["mvdr", "music", "mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_not_ported_modes_raise(kw):
-    """MVDR, MUSIC and a mesh raise the pipeline's not-ported error; they
-    never run the DAS heatmap in their place."""
+    """A mesh raises the pipeline's not-ported error."""
     with pytest.raises(NotImplementedError, match="not ported"):
         _unit(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(heatmap_mode="mvdr", mvdr_refresh=2),
+    dict(heatmap_mode="music", music_solver="eigh", music_sources=2),
+], ids=["mvdr", "music"])
+def test_adaptive_modes_run(kw):
+    """MVDR and MUSIC: each pipeline gets the estimator with the unit's
+    options, the DAS heatmap off, and the rendered frame shows the
+    estimator's peak at the source."""
+    cfg = Config(mimo=MimoConfig(rows=16, columns=16))
+    unit = _unit(cfg, n_arrays=1, enable_tracker=False, frame_size=16, **kw)
+    pipe = unit.pipelines[0]
+    est = pipe._mvdr_step
+    if kw["heatmap_mode"] == "mvdr":
+        assert est.weight_refresh == 2
+    else:
+        assert (est.solver, est.n_sources) == ("eigh", 2)
+    assert pipe.step.fft_model is None and pipe.step.mimo_model is None
+    blocks = [plane_wave_block(pipe.points, [(0.5, 1.2, 5000.0)], b * 256, 256,
+                               cfg.array, noise_std=0.02) for b in range(4)]
+    summary = unit.run([blocks], n_blocks=4, render_every=4)
+    assert summary["blocks"] == 4 and pipe._mvdr_state.count == 4
+    img = pipe.heatmap()
+    assert img.max() == 255
+    assert np.unravel_index(img.argmax(), img.shape) == np.unravel_index(
+        int(pipe._mvdr_powers.argmax()), img.shape)
 
 
 def test_unit_places_its_parts_on_its_device():
