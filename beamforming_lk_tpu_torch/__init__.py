@@ -11,8 +11,10 @@ heatmaps in place of DAS (``heatmap_mode="mvdr"``: ``models.mvdr``, MVDR /
 Capon; ``"music"``: ``models.music``, wideband MUSIC; both plain torch),
 auto-calibration (``calibrate``) and checkpoints (``save``, ``restore``);
 the fusion of several arrays into 3D tracks (``models.fusion.TargetFusion``,
-with ``models.kalman``); and the CLI and control unit (``app.cli``,
-``app.control``).  Its hand-written
+with ``models.kalman``); the CLI and control unit (``app.cli``,
+``app.control``); and the multi-device path on ``torch.distributed``
+(``parallel``: one process a rank, ``mesh=`` on the pipeline, the step,
+the control unit and the bin-sharded MVDR and MUSIC).  Its hand-written
 CUDA kernels, one per TPU kernel of the JAX package:
 
 - ``csrc/swarm_chain.cu``: the monopulse chain K0, the per-block swarm

@@ -27,7 +27,17 @@ block by block.
 (``calibrate``), saves and restores its state (``save``, ``restore``), and
 with ``heatmap_mode="mvdr"`` or ``"music"`` renders an adaptive estimator's
 spectrum (``models.mvdr``, ``models.music``) in place of the DAS heatmap.
-A mesh raises ``NotImplementedError``.
+
+With a mesh (``parallel.make_mesh``; one process a rank) the step is the
+JAX package's sharded one: each rank holds its ``ch`` block of the
+history and its ``dir`` block of the powers, the swarm and the listener
+are replicated, and the collectives make the ranks agree.  The fft
+heatmap runs whole on every rank and is sliced to its directions when
+``ch`` has size 1; otherwise the dense heatmap runs on the rank's
+(direction, channel) block through the DAS-beam kernel and an all-reduce
+over ``ch``.  The tracker and MISO take the XLA chain (K0, or with ``ch``
+above 1 a K4 launch and an all-reduce per sub-step), and the replay steps
+block by block.
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
 from beamforming_lk_tpu_torch.io import checkpoint as ckpt
@@ -53,10 +65,12 @@ from beamforming_lk_tpu_torch.models.mimo import (
 from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import fft_das as fd
+from beamforming_lk_tpu_torch.parallel.mesh import Layout
 
 
 class AwpuState(NamedTuple):
-    """Carried state of one array's pipeline."""
+    """Carried state of one array's pipeline (under a mesh, the rank's
+    shards of ``history`` and ``powers``; the rest replicated)."""
 
     history: torch.Tensor       # [C, H] ring history
     swarm: tk.SwarmState
@@ -71,10 +85,6 @@ class AwpuOutputs(NamedTuple):
     targets: tk.Targets
     miso_beam: torch.Tensor     # [T]
     prev_max: torch.Tensor      # []
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the torch package yet")
 
 
 def _ema_chain(maxes, prev_max, alpha: float):
@@ -98,13 +108,17 @@ class AwpuStep(nn.Module):
     draws=None) -> (state, AwpuOutputs)``, and the chunked replay of a
     batch, :meth:`scan_chunks`.  With the tracker off the targets are zero,
     with the MISO off the beam is zero; with both off the pipeline is
-    heatmap-only."""
+    heatmap-only.  With a mesh ``layout`` (``parallel.mesh.Layout``) the
+    step takes and keeps this rank's shards (module docstring) and never
+    replays in chunks."""
 
     def __init__(self, points, cfg, channel_mask=None, enable_mimo=True,
-                 enable_tracker=True, enable_miso=True, device=None):
+                 enable_tracker=True, enable_miso=True, device=None,
+                 layout: Optional[Layout] = None):
         super().__init__()
         dsp, arr, tc = cfg.dsp, cfg.array, cfg.tracker
         self.cfg = cfg
+        self.layout = layout
         self.enable_mimo = enable_mimo
         self.taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
         points = np.asarray(points, np.float32)
@@ -120,10 +134,13 @@ class AwpuStep(nn.Module):
                     f"but DspConfig.shift_range is {dsp.shift_range}"
                 )
             if cfg.mimo.backend == "fft":
-                self.fft_model = fd.make_fft_heatmap_model(
-                    points, cfg.mimo, dsp, arr, channel_mask=channel_mask,
-                    compute=dsp.compute, device=device,
-                )
+                # The fft heatmap needs every channel: under a mesh it runs
+                # whole on each rank, so only where ch has size 1.
+                if layout is None or layout.ch.size == 1:
+                    self.fft_model = fd.make_fft_heatmap_model(
+                        points, cfg.mimo, dsp, arr, channel_mask=channel_mask,
+                        compute=dsp.compute, device=device,
+                    )
                 if self.fft_model is None:
                     # The JAX package's own fallback to the dense heatmap.
                     print("mimo backend 'fft' unavailable for this "
@@ -131,10 +148,12 @@ class AwpuStep(nn.Module):
             if self.fft_model is None:
                 self.mimo_model = make_mimo_model(
                     points, cfg.mimo, dsp, arr, channel_mask=channel_mask,
-                    compute=dsp.compute, device=device,
+                    compute=dsp.compute, device=device, layout=layout,
                 )
                 self.n_active = float(points.shape[1] if channel_mask is None
                                       else np.sum(channel_mask))
+            elif layout is not None:
+                self.directions = layout.dir.part(cfg.mimo.n_directions)
         span = dl.probe_span(points, arr.samples_per_meter, self.taps,
                              dsp.shift_range)
         # Tracker and MISO both on at a real-time cadence share one swarm
@@ -144,7 +163,7 @@ class AwpuStep(nn.Module):
                  and tc.iterations * tc.tracker_steps >= 3)
         self.swarm_step = self.tracker_step = self.miso_step = None
         self.chunk_step = None
-        step_kw = dict(probe_span=span, device=device)
+        step_kw = dict(probe_span=span, device=device, layout=layout)
         if fused:
             self.swarm_step = tk.make_fused_step_impl(
                 tc, dsp, arr, points, channel_mask, **step_kw)
@@ -161,14 +180,17 @@ class AwpuStep(nn.Module):
         # block.
         self.every = max(cfg.mimo.heatmap_every, 1) if enable_mimo else 1
         heatmap_only = not (enable_tracker or enable_miso)
-        if fused and tc.probe_kernel == "pallas":
+        if layout is not None:
+            chunk = 0
+        elif fused and tc.probe_kernel == "pallas":
             chunk = dsp.fused_chunk
         else:
             chunk = cfg.mimo.heatmap_chunk if heatmap_only and enable_mimo else 0
         self.chunk = chunk if chunk > 1 and chunk % self.every == 0 else 0
         if self.chunk and fused:
             self.chunk_step = tk.make_fused_chunk_impl(
-                tc, dsp, arr, points, channel_mask, **step_kw)
+                tc, dsp, arr, points, channel_mask, probe_span=span,
+                device=device)
 
     def _maps(self, windows):
         """Heatmap powers [D] of a window [C, T+S], or [K, D] of a stack
@@ -180,6 +202,23 @@ class AwpuStep(nn.Module):
             return fd.fft_heatmap_powers(windows, self.fft_model)
         return fd.fft_heatmap_powers_chunked(windows, self.fft_model)
 
+    def _heatmap(self, window):
+        """(this rank's powers, the whole map's maximum) of a window: the
+        whole map without a mesh; under one, the fft map sliced to the
+        rank's directions, or the dense map's direction block reduced over
+        ``ch`` with its maximum reduced over ``dir``."""
+        layout = self.layout
+        if layout is None:
+            powers = self._maps(window)
+            return powers, torch.max(powers)
+        if self.fft_model is not None:
+            powers = self._maps(window)
+            return powers[self.directions], torch.max(powers)
+        powers = mimo_power(window, self.mimo_model, self.n_active,
+                            reduce=layout.ch.all_reduce)
+        return powers, layout.dir.all_reduce(torch.max(powers),
+                                             op=dist.ReduceOp.MAX)
+
     def forward(self, state: AwpuState, block, generator=None, draws=None):
         cfg, dsp = self.cfg, self.cfg.dsp
         history = rg.ring_push(state.history, block)
@@ -187,9 +226,9 @@ class AwpuStep(nn.Module):
                                 self.taps)
         powers, prev_max = state.powers, state.prev_max
         if self.enable_mimo and state.block_index % cfg.mimo.heatmap_every == 0:
-            powers = self._maps(window)
+            powers, peak = self._heatmap(window)
             a = cfg.mimo.ema_alpha
-            prev_max = torch.max(powers) * a + (1.0 - a) * state.prev_max
+            prev_max = peak * a + (1.0 - a) * state.prev_max
         swarm, miso = state.swarm, state.miso
         if self.swarm_step is not None:
             swarm, targets, miso_p, miso_beam = self.swarm_step(
@@ -291,38 +330,69 @@ class AwpuStep(nn.Module):
         return new_state, stacked
 
 
+def _placement(mesh, device):
+    """(layout or None, torch device) of an entry point's ``mesh`` and
+    ``device``: under a CUDA mesh the rank's current card."""
+    if mesh is None:
+        return None, resolve_device(device)
+    layout = Layout(mesh)
+    return layout, layout.device(device)
+
+
 def make_awpu_step(points, cfg, channel_mask=None, mesh=None,
                    enable_mimo: bool = True, enable_tracker: bool = True,
                    enable_miso: bool = True, device="cuda") -> AwpuStep:
-    """Build the step for one device (the card unless ``device`` says
-    otherwise): the fused tracker + MISO step, the unfused tracker and MISO
-    steps (either one off, or more than 4 iterations), or with both off the
-    heatmap-only step.  Raises ``NotImplementedError`` for a mesh."""
-    if mesh is not None:
-        raise _not_ported("multi-device execution (mesh)")
+    """Build the step on ``device`` (the card unless it names the CPU): the
+    fused tracker + MISO step, the unfused tracker and MISO steps (either
+    one off, or more than 4 iterations), or with both off the heatmap-only
+    step.  ``mesh`` (a ``DeviceMesh`` with axes ``ch`` and / or ``dir``,
+    whose device type ``device`` must match) shards it; C must split over
+    ``ch`` and D over ``dir``."""
+    layout, device = _placement(mesh, device)
     return AwpuStep(points, cfg, channel_mask, enable_mimo, enable_tracker,
-                    enable_miso, resolve_device(device))
+                    enable_miso, device, layout)
 
 
 def awpu_init(cfg, channels: int, mesh=None, seed: int = 0, device="cuda",
               generator: Optional[torch.Generator] = None) -> AwpuState:
     """Fresh state on ``device`` (the card by default): empty ring, swarm
-    drawn from ``generator`` (or one seeded with ``seed``), MISO at
-    boresight."""
-    if mesh is not None:
-        raise _not_ported("multi-device execution (mesh)")
-    device = resolve_device(device)
+    drawn from ``generator`` (or one seeded with ``seed``, the same on
+    every rank), MISO at boresight; under a ``mesh``, this rank's blocks of
+    the ring's channels and of the powers."""
+    layout, device = _placement(mesh, device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
+    c, d = channels, cfg.mimo.n_directions
+    if layout is not None:
+        c, d = layout.ch.count(c), layout.dir.count(d)
     return AwpuState(
-        history=rg.ring_init(channels, cfg.dsp.history, device=device),
+        history=rg.ring_init(c, cfg.dsp.history, device=device),
         swarm=tk.swarm_init(cfg.tracker, generator, device),
         miso=ms.miso_init(device=device),
         prev_max=torch.zeros((), dtype=torch.float32, device=device),
         block_index=0,
-        powers=torch.zeros((cfg.mimo.n_directions,), dtype=torch.float32,
-                           device=device),
+        powers=torch.zeros((d,), dtype=torch.float32, device=device),
     )
+
+
+def shard_state(state: AwpuState, layout: Optional[Layout]) -> AwpuState:
+    """This rank's shards of a whole state: its channels of the history,
+    its directions of the powers (the state itself without a mesh)."""
+    if layout is None:
+        return state
+    return state._replace(
+        history=state.history[layout.ch.part(state.history.shape[0])].contiguous(),
+        powers=state.powers[layout.dir.part(state.powers.shape[0])].contiguous(),
+    )
+
+
+def gather_state(state: AwpuState, layout: Optional[Layout]) -> AwpuState:
+    """The whole state from every rank's shards (collectives over ``ch``
+    and ``dir``; the state itself without a mesh)."""
+    if layout is None:
+        return state
+    return state._replace(history=layout.ch.all_gather(state.history),
+                          powers=layout.dir.all_gather(state.powers))
 
 
 class AwpuPipeline:
@@ -340,7 +410,17 @@ class AwpuPipeline:
     tracker and the MISO listener; ``heatmap()`` renders its spectrum.  As
     in the JAX package, ``calibrate`` rebuilds only the DAS step (the
     estimator keeps the mask it was built with), and ``save`` / ``restore``
-    carry the ``AwpuState`` alone, not the estimator's covariance."""
+    carry the ``AwpuState`` alone, not the estimator's covariance.
+
+    With a ``mesh`` (one pipeline a rank, each built with the same
+    arguments and seed) the step is sharded (module docstring): blocks come
+    whole or as the ``DTensor`` of ``parallel.multihost.
+    global_block_from_local``; ``heatmap()`` gathers the powers over
+    ``dir``; ``calibrate`` gathers the history over ``ch``, and every rank
+    computes the same mask; ``save`` gathers the state and the mesh's first
+    rank writes it, ``restore`` reads the file on every rank, each keeping
+    its shards; the estimator of ``heatmap_mode`` runs whole on every rank
+    on the block gathered over ``ch``."""
 
     #: The checkpoint key of the generator's state: the port's draws come
     #: from :attr:`generator`, where the JAX package carries ``.swarm/.key``.
@@ -356,7 +436,8 @@ class AwpuPipeline:
             raise ValueError(f"heatmap_mode must be 'das', 'mvdr' or 'music', "
                              f"got {heatmap_mode!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.layout, self.device = _placement(mesh, device)
         if points is None:
             points = ant.multi_array_cluster(
                 cfg.array.elements if channels is None else channels,
@@ -368,13 +449,10 @@ class AwpuPipeline:
         self._enable = dict(enable_mimo=enable_mimo and heatmap_mode == "das",
                             enable_tracker=enable_tracker,
                             enable_miso=enable_miso)
-        self.step = make_awpu_step(
-            self.points, cfg, channel_mask=channel_mask, mesh=mesh,
-            device=self.device, **self._enable,
-        )
+        self.step = self._make_step(channel_mask)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = awpu_init(cfg, self.points.shape[1], device=self.device,
-                               generator=self.generator)
+        self.state = awpu_init(cfg, self.points.shape[1], mesh=mesh,
+                               device=self.device, generator=self.generator)
         self.last: Optional[AwpuOutputs] = None
         # The adaptive estimator, its state, its last spectrum and the EMA
         # of its rendered maxima (the JAX package's names).
@@ -395,14 +473,37 @@ class AwpuPipeline:
             self._mvdr_prev = torch.zeros((), dtype=torch.float32,
                                           device=self.device)
 
+    def _make_step(self, channel_mask) -> AwpuStep:
+        return AwpuStep(self.points, self.cfg, channel_mask, device=self.device,
+                        layout=self.layout, **self._enable)
+
+    def _blocks(self, blocks, dim: int):
+        """(this rank's channels, the whole block or None) of a block
+        (``dim`` 0) or a stack (``dim`` 1): numpy, a tensor, or a
+        ``DTensor`` sharded over ``ch``, gathered only for an estimator."""
+        whole = None
+        if isinstance(blocks, DTensor):
+            local = blocks.to_local()
+            if self._mvdr_step is not None:
+                whole = blocks.full_tensor()
+        else:
+            whole = torch.as_tensor(blocks, dtype=torch.float32,
+                                    device=self.device)
+            local = whole
+            if self.layout is not None:
+                part = self.layout.ch.part(whole.shape[dim])
+                local = whole.narrow(dim, part.start, part.stop - part.start)
+        return local, whole
+
     def process_block(self, block, draws=None) -> AwpuOutputs:
-        """Feed one [C, T] block (numpy or tensor) through the estimator, if
-        any, and the step."""
-        block = torch.as_tensor(block, dtype=torch.float32, device=self.device)
+        """Feed one [C, T] block (numpy, a tensor, or under a mesh the
+        ``DTensor`` of its ``ch`` shards) through the estimator, if any,
+        and the step."""
+        block, whole = self._blocks(block, 0)
         with full_f32():
             if self._mvdr_step is not None:
                 self._mvdr_state, self._mvdr_powers = self._mvdr_step(
-                    self._mvdr_state, block)
+                    self._mvdr_state, whole)
             self.state, self.last = self.step(
                 self.state, block, generator=self.generator, draws=draws
             )
@@ -413,14 +514,14 @@ class AwpuPipeline:
         axis and equal M calls of :meth:`process_block`.  Whole chunks that
         start on the heatmap decimation phase replay through
         :meth:`AwpuStep.scan_chunks` (one chunk-kernel launch per
-        ``fused_chunk`` blocks); any other batch runs block by block.
-        ``draws`` are :meth:`process_block`'s draws stacked over the M
-        blocks."""
-        blocks = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
+        ``fused_chunk`` blocks); any other batch, and every batch under a
+        mesh, runs block by block.  ``draws`` are :meth:`process_block`'s
+        draws stacked over the M blocks."""
+        blocks, whole = self._blocks(blocks, 1)
         with full_f32():
             if self._mvdr_step is not None:
                 self._mvdr_state, powers = self._mvdr_step.scan(
-                    self._mvdr_state, blocks)
+                    self._mvdr_state, whole)
                 self._mvdr_powers = powers[-1]
             if self.step.takes_chunks(self.state, blocks.shape[0]):
                 self.state, stacked = self.step.scan_chunks(
@@ -452,6 +553,12 @@ class AwpuPipeline:
         """Whether the pipeline runs the MISO listener."""
         return self._enable["enable_miso"]
 
+    @property
+    def is_root(self) -> bool:
+        """Whether this pipeline writes outputs: always without a mesh,
+        on the mesh's first rank with one."""
+        return self.layout is None or self.layout.is_root
+
     def steer(self, theta: float, phi: float) -> None:
         """Pin the MISO listener (click-to-steer)."""
         self.state = self.state._replace(
@@ -470,7 +577,8 @@ class AwpuPipeline:
         """The last powers rendered to a uint8 [rows, cols] numpy image: the
         estimator's spectrum, normalised by its maximum, when there is one
         (each call advances the EMA of its maxima, as in the JAX package),
-        else the DAS heatmap."""
+        else the DAS heatmap (under a mesh gathered over ``dir``, a
+        collective every rank calls)."""
         mimo = self.cfg.mimo
         if self._mvdr_powers is not None:
             img, self._mvdr_prev = render_heatmap(
@@ -480,8 +588,11 @@ class AwpuPipeline:
             return img.cpu().numpy()
         if self.last is None:
             return np.zeros((mimo.rows, mimo.columns), np.uint8)
+        powers = self.last.powers
+        if self.layout is not None:
+            powers = self.layout.dir.all_gather(powers)
         img, _ = render_heatmap(
-            self.last.powers, mimo.rows, mimo.columns, self.state.prev_max,
+            powers, mimo.rows, mimo.columns, self.state.prev_max,
             ema_alpha=1.0, use_db=mimo.use_db,
         )
         return img.cpu().numpy()
@@ -490,39 +601,47 @@ class AwpuPipeline:
         """Auto-calibrate and rebuild the step with the resulting channel
         mask (``AWProcessingUnit::calibrate``, aw_processing_unit.cpp:
         102-212).  ``blocks``: [C, T] blocks fed first (else the carried
-        history is used as it is); the carried history is calibrated on the
-        device and the mask fetched to the host once.  ``apply_gains``
-        folds ``sqrt(gains)`` into the mask: a gain mask, which the fft
-        heatmap cannot take, so the step falls back to the dense heatmap.
-        The state carries over.  Returns the ``CalibrationResult``."""
+        history is used as it is); the carried history (under a mesh
+        gathered over ``ch``) is calibrated on the device and the mask
+        fetched to the host once.  ``apply_gains`` folds ``sqrt(gains)``
+        into the mask: a gain mask, which the fft heatmap cannot take, so
+        the step falls back to the dense heatmap.  The state carries over.
+        Returns the ``CalibrationResult``."""
         if blocks is not None:
             for b in blocks:
                 self.process_block(b)
+        history = gather_state(self.state, self.layout).history
         with full_f32():
-            result = cal.calibrate(self.state.history)
+            result = cal.calibrate(history)
         mask, gains = torch.stack([result.mask, result.gains]).cpu().numpy()
         if apply_gains:
             mask = mask * np.sqrt(gains)     # power gains; beams scale by sqrt
         self.channel_mask = mask
-        self.step = make_awpu_step(self.points, self.cfg, channel_mask=mask,
-                                   device=self.device, **self._enable)
+        self.step = self._make_step(mask)
         return result
 
     def save(self, path: str) -> None:
         """Checkpoint the carried state (ring history, swarm, MISO, EMA,
         counters) and the generator's state to ``path`` (.npz), keyed as
-        the JAX package keys its state."""
-        ckpt.save_state(path, self.state, extra={
-            self.GENERATOR_KEY: self.generator.get_state().numpy()})
+        the JAX package keys its state.  Under a mesh every rank gathers
+        the state, the first writes it, and all wait for the file."""
+        state = gather_state(self.state, self.layout)
+        if self.is_root:
+            ckpt.save_state(path, state, extra={
+                self.GENERATOR_KEY: self.generator.get_state().numpy()})
+        if self.layout is not None:
+            self.layout.barrier()
 
     def restore(self, path: str) -> None:
         """Load a checkpoint that :meth:`save` wrote, or that the JAX
-        package's ``AwpuPipeline.save`` wrote, onto this pipeline's device.
+        package's ``AwpuPipeline.save`` wrote, onto this pipeline's device
+        (under a mesh, each rank its shards).
         With the generator's state in the file the pipeline continues bit
         for bit as the saved one would have; a JAX file carries no torch
         generator (its ``.swarm/.key`` is not read), so the state is the
         same and the later draws are this pipeline's own."""
-        self.state = ckpt.load_state(path, self.state)
+        template = gather_state(self.state, self.layout)
+        self.state = shard_state(ckpt.load_state(path, template), self.layout)
         with np.load(path) as data:
             if self.GENERATOR_KEY in data:
                 self.generator.set_state(torch.as_tensor(data[self.GENERATOR_KEY]))

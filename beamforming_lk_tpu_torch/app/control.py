@@ -50,9 +50,14 @@ class ControlUnit:
 
     ``heatmap_mode`` "mvdr" or "music" renders each pipeline's adaptive
     estimator in place of the DAS heatmap, with ``mvdr_refresh``,
-    ``music_solver`` and ``music_sources`` passed on to it; a ``mesh``
-    raises the pipeline's ``NotImplementedError`` (multi-device is not
-    ported)."""
+    ``music_solver`` and ``music_sources`` passed on to it.
+
+    ``mesh`` (one control unit a rank, each built with the same arguments)
+    shards every pipeline over it; the mesh's first rank alone writes the
+    frames, the WAV, MP3 and AVI, plays the audio and calls ``on_frame``
+    (the CLI's WARA PS and telemetry), while every rank runs the same
+    steps and renders (the heatmap gathers over ``dir``).  The live window
+    (``display``) runs without a mesh: its keys would stop one rank."""
 
     def __init__(
         self,
@@ -106,6 +111,7 @@ class ControlUnit:
             )
             for i in range(n_arrays)
         ]
+        self.mesh = mesh
         self.metrics = BlockMetrics(cfg.dsp.block_size, cfg.array.sample_rate)
         self.stages = StageTimer()
         self.fps = FpsMeter()
@@ -372,14 +378,21 @@ class ControlUnit:
         launch of the chunk kernel in the realtime profile, and with
         ``MimoConfig.heatmap_chunk`` set and tracker/MISO off the batched
         heatmap).  Rendering/fusion then see state at batch granularity.
+
+        Under a mesh every rank takes the same steps and renders the same
+        frames (a frame gathers over the mesh); only the first rank writes
+        or plays anything.
         """
+        if self.mesh is not None and display:
+            raise ValueError("the live display runs without a mesh")
+        root = all(p.is_root for p in self.pipelines)
         wav = None
-        if miso_wav is not None:
+        if miso_wav is not None and root:
             from beamforming_lk_tpu_torch.io.wav import WavWriter
 
             wav = WavWriter(miso_wav, self.cfg.array.sample_rate)
         mp3 = player = None
-        if miso_mp3 is not None:
+        if miso_mp3 is not None and root:
             from beamforming_lk_tpu_torch.io.audio_out import Mp3Recorder
 
             try:
@@ -388,9 +401,9 @@ class ControlUnit:
                 )
             except RuntimeError as e:
                 print(f"mp3 recording disabled: {e}", file=sys.stderr)
-        if play is not None:
-            if play not in ("raw", "miso"):
-                raise ValueError(f"play must be 'raw' or 'miso', got {play!r}")
+        if play is not None and play not in ("raw", "miso"):
+            raise ValueError(f"play must be 'raw' or 'miso', got {play!r}")
+        if play is not None and root:
             from beamforming_lk_tpu_torch.io.audio_out import AudioPlayer
 
             try:
@@ -402,7 +415,7 @@ class ControlUnit:
                 play = None
         recorder = screen = None
         record_count = 0
-        if record_avi is not None:
+        if record_avi is not None and root:
             from beamforming_lk_tpu_torch.utils.video import VideoRecorder
 
             recorder = VideoRecorder(record_avi)
@@ -411,7 +424,7 @@ class ControlUnit:
             from beamforming_lk_tpu_torch.utils.video import LiveDisplay
 
             screen = LiveDisplay()
-        if output_dir is not None:
+        if output_dir is not None and root:
             os.makedirs(output_dir, exist_ok=True)
         import itertools as _it
 
@@ -466,13 +479,14 @@ class ControlUnit:
                                 player = None
                 want_frame = (
                     output_dir is not None or on_frame is not None
-                    or recorder is not None or screen is not None
+                    or record_avi is not None or recorder is not None
+                    or screen is not None
                 )
                 rendered_boundary = (i + k) // render_every != i // render_every
                 if rendered_boundary and want_frame:
                     with self.stages.stage("render"):
                         frame = self.render_frame()
-                        if output_dir is not None:
+                        if output_dir is not None and root:
                             write_png(
                                 os.path.join(
                                     output_dir, f"frame_{i + k - 1:06d}.png"
@@ -496,9 +510,9 @@ class ControlUnit:
                             )
                         for r, c in screen.pop_clicks():
                             self.handle_click(r, c)  # click-to-steer
-                    if on_frame is not None:
+                    if on_frame is not None and root:
                         on_frame(frame)
-                if verbose and (i + k) // 64 != i // 64:
+                if verbose and root and (i + k) // 64 != i // 64:
                     s = self.metrics.summary()
                     print(
                         f"block {i + k}: {s['blocks_per_s']:.1f} blocks/s "

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beamforming_lk_tpu_torch.app.awpu import AwpuState
+from beamforming_lk_tpu_torch.app.awpu import AwpuState, shard_state
 from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.io.checkpoint import load_state
 from beamforming_lk_tpu_torch.models.mimo import MimoModel
@@ -19,6 +19,7 @@ from beamforming_lk_tpu_torch.models.music import MusicState
 from beamforming_lk_tpu_torch.models.mvdr import MvdrState
 from beamforming_lk_tpu_torch.models.tracker import Particles, SwarmState
 from beamforming_lk_tpu_torch.ops.fft_das import FftHeatmapModel
+from beamforming_lk_tpu_torch.parallel.mesh import Layout
 
 
 def _t(a, device, dtype=None):
@@ -53,10 +54,13 @@ def miso_state_from_jax(ms, device=None) -> MisoState:
                      tracking=_t(ms.tracking, device, torch.bool))
 
 
-def awpu_state_from_jax(state, device=None) -> AwpuState:
+def awpu_state_from_jax(state, device=None, mesh=None) -> AwpuState:
     """A JAX ``AwpuState`` whose leaves are numpy arrays (its PRNG key is
-    not read) -> the port's ``AwpuState``; the counters become host ints."""
-    return AwpuState(
+    not read) -> the port's ``AwpuState``; the counters become host ints.
+    With a ``mesh`` the whole state becomes this rank's shards (its
+    channels of the history, its directions of the powers), so that both
+    packages can start a sharded run from one state."""
+    whole = AwpuState(
         history=_t(state.history, device, torch.float32),
         swarm=swarm_state_from_jax(state.swarm, device),
         miso=miso_state_from_jax(state.miso, device),
@@ -64,6 +68,7 @@ def awpu_state_from_jax(state, device=None) -> AwpuState:
         block_index=int(np.asarray(state.block_index)),
         powers=_t(state.powers, device, torch.float32),
     )
+    return shard_state(whole, None if mesh is None else Layout(mesh))
 
 
 def mvdr_state_from_jax(state, device=None) -> MvdrState:

@@ -15,8 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from beamforming_lk_tpu_torch.models.tracker import MisoBeam, Particles, probe_windows
-from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+from beamforming_lk_tpu_torch.device import resolve_device
+from beamforming_lk_tpu_torch.models.tracker import MisoBeam, Particles, ProbeChain
 from beamforming_lk_tpu_torch.ops import delay as dl
 
 
@@ -54,45 +54,53 @@ class MisoStep(nn.Module):
     ``make_miso_step_impl``): ``refine_steps`` monopulse steps at
     ``tracker_step_gain * tracker_spread / 3`` (miso.cpp:39-40) as one
     launch of the monopulse-chain kernel, then the f32 audio beam at the
-    refined direction.
+    refined direction.  With the channels sharded over a mesh (``layout``)
+    the refine steps and the beam reduce their partial beams over ``ch``
+    (:class:`models.tracker.ProbeChain`, :class:`models.tracker.MisoBeam`).
 
     ``forward(state, window [C, T+S]) -> (state, beam [T])``."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 refine_steps: int = 3, probe_span=None, device=None):
+                 refine_steps: int = 3, probe_span=None, device=None,
+                 layout=None):
         super().__init__()
-        self.cfg, self.dsp = cfg, dsp
-        self.taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
-        self.span = (dsp.shift_range if probe_span is None
-                     else min(probe_span, dsp.shift_range))
+        span = (dsp.shift_range if probe_span is None
+                else min(probe_span, dsp.shift_range))
         rate = cfg.tracker_step_gain * cfg.tracker_spread / 3.0
         self.register_buffer("dyn", torch.as_tensor(
             np.array([[rate], [cfg.tracker_spread]], np.float32), device=device))
         self.register_buffer("active", torch.ones(
             (refine_steps, 1), dtype=torch.float32, device=device))
-        self.register_buffer("xyz", ctk.pack_geometry(
-            points, array_cfg.samples_per_meter, channel_mask, device=device))
-        self.beam = MisoBeam(dsp, array_cfg, points, channel_mask, self.span,
-                             device)
+        self.probes = ProbeChain(cfg, dsp, array_cfg, points, channel_mask,
+                                 span, layout, device)
+        self.beam = MisoBeam(dsp, array_cfg, points, channel_mask, span,
+                             device, layout)
 
     def forward(self, state: MisoState, window):
-        win_bp, pw = probe_windows(window, self.dsp, self.span)
+        win_bp, pw = self.probes.windows(window)
         rows = torch.cat([torch.cat(state.particle)[:, None], self.dyn])
-        out = ctk.monopulse_chain(
-            self.xyz, win_bp, rows, self.active, span=self.span,
-            taps=self.taps, theta_limit=self.cfg.theta_limit,
-            divisor=float(self.dsp.block_size),
-            probe_layout=self.cfg.probe_layout, interp=self.dsp.interp,
-            fir_phases=self.dsp.fir_phases,
-        )
-        particle = Particles(*out.unbind(0))
+        particle = Particles(*self.probes(win_bp, rows, self.active).unbind(0))
         return state._replace(particle=particle), self.beam(particle, pw)
 
 
 def make_miso_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                         refine_steps: int = 3, probe_span=None,
-                        device=None) -> MisoStep:
+                        device=None, layout=None) -> MisoStep:
     """The unfused MISO per-block update (the JAX package's function of the
-    same name)."""
+    same name); ``layout`` (``parallel.mesh.Layout``) shards it as the JAX
+    package's ``axis_name``."""
     return MisoStep(cfg, dsp, array_cfg, points, channel_mask, refine_steps,
-                    probe_span, device)
+                    probe_span, device, layout)
+
+
+def make_miso_step(points, cfg, dsp, array_cfg, channel_mask=None,
+                   refine_steps: int = 3, device="cuda") -> MisoStep:
+    """The single-device per-block MISO update on ``device`` (the card by
+    default), its probe span sized from the aperture: ``step(state,
+    window) -> (state, beam [T])``, ``refine_steps`` monopulse steps at a
+    third of the tracker rate (miso.cpp:39-40), then the beam."""
+    taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
+    span = dl.probe_span(points, array_cfg.samples_per_meter, taps,
+                         dsp.shift_range)
+    return MisoStep(cfg, dsp, array_cfg, points, channel_mask, refine_steps,
+                    span, resolve_device(device))

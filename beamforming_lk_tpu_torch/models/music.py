@@ -38,6 +38,7 @@ import torch
 
 from beamforming_lk_tpu_torch.config import ArrayConfig
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
+from beamforming_lk_tpu_torch.parallel.mesh import Axis, Layout
 from beamforming_lk_tpu_torch.models.mvdr import CovarianceStep, hermitian_embed
 
 _EPS_F32 = float(np.finfo(np.float32).eps)
@@ -79,14 +80,15 @@ class MusicStep(CovarianceStep):
                  f_low: float = 550.0, f_high: float = 9000.0,
                  ema_alpha: float = 0.1, channel_mask=None,
                  solver: str = "subspace", subspace_iters: int = 2,
-                 device="cuda"):
+                 device="cuda", shard=None):
         c, k = int(np.asarray(points).shape[1]), int(n_sources)
         if not 0 < k < c:
             raise ValueError(f"n_sources must be in (0, {c}), got {k}")
         if solver not in ("subspace", "eigh"):
             raise ValueError(f"solver must be 'subspace' or 'eigh', got {solver!r}")
         super().__init__(points, theta, phi, array_cfg, frame_size, hop, f_low,
-                         f_high, ema_alpha, channel_mask, resolve_device(device))
+                         f_high, ema_alpha, channel_mask, resolve_device(device),
+                         shard)
         self.n_sources, self.solver = k, solver
         self.subspace_iters = int(subspace_iters)
         self.n_noise = 2 * (c - k)
@@ -127,8 +129,8 @@ class MusicStep(CovarianceStep):
             floor = 2.0 * self.channels * _EPS_F32
         sig = torch.clamp(sig_vals.sum(-1) - 2 * self.n_sources * noise_mean,
                           min=0.0) * self.binw
-        w = sig / torch.clamp(sig.sum(), min=1e-30)
-        return (w[:, None] / torch.clamp(denom, min=floor)).sum(0)
+        w = sig / torch.clamp(self.reduce(sig.sum()), min=1e-30)
+        return self.reduce((w[:, None] / torch.clamp(denom, min=floor)).sum(0))
 
     def forward(self, state: MusicState, block):
         with full_f32():
@@ -152,3 +154,23 @@ def make_music_step(points, theta, phi, array_cfg: ArrayConfig = ArrayConfig(),
                      f_low, f_high, ema_alpha, channel_mask, solver,
                      subspace_iters, device)
     return step, step.n_bins
+
+
+def make_sharded_music_step(points, theta, phi, mesh, axis_name: str = "dir",
+                            array_cfg: ArrayConfig = ArrayConfig(),
+                            n_sources: int = 3, frame_size: int = 64,
+                            hop: int = 32, f_low: float = 550.0,
+                            f_high: float = 9000.0, ema_alpha: float = 0.1,
+                            channel_mask=None, solver: str = "subspace",
+                            subspace_iters: int = 2, device="cuda"):
+    """Bin-sharded wideband MUSIC over the ranks of ``mesh``'s
+    ``axis_name`` (the estimator twin of
+    :func:`models.mvdr.make_sharded_mvdr_step`): ``(step, state)``.  Each
+    rank keeps its bins' covariance and signal basis; the SNR normaliser
+    and the [D] pseudo-spectrum are all-reduced (padding bins carry zero
+    weight)."""
+    step = MusicStep(points, theta, phi, array_cfg, n_sources, frame_size, hop,
+                     f_low, f_high, ema_alpha, channel_mask, solver,
+                     subspace_iters, Layout(mesh).device(device),
+                     Axis(mesh, axis_name))
+    return step, step.init()

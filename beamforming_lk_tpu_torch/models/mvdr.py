@@ -34,6 +34,7 @@ from torch import nn
 
 from beamforming_lk_tpu_torch.config import ArrayConfig
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
+from beamforming_lk_tpu_torch.parallel.mesh import Axis, Layout
 from beamforming_lk_tpu_torch.ops import antenna as ant
 
 
@@ -123,20 +124,32 @@ def _stft_snapshots(block, dft_t, frame_size: int, hop: int, mask=None):
 class CovarianceStep(nn.Module):
     """What the adaptive estimators share: the analysis tables, the steering
     planes ``v_emb`` [F, D, 2C] (``[vr | vi]``, built once), the bin
-    weights ``binw`` [F] (all ones on one device; a bin-sharded step gives
-    padding bins 0), the channel mask, and the covariance EMA."""
+    weights ``binw`` [F], the channel mask, and the covariance EMA.
+
+    ``shard`` (a ``parallel.mesh.Axis``) shards the bins over its ranks:
+    the bins pad up to a multiple of its size (repeats of the last bin,
+    with ``binw`` 0), each rank keeps its block of them, and
+    :meth:`reduce` sums a per-bin total over the ranks."""
 
     def __init__(self, points, theta, phi, array_cfg, frame_size, hop, f_low,
-                 f_high, ema_alpha, channel_mask, device):
+                 f_high, ema_alpha, channel_mask, device, shard=None):
         super().__init__()
         bins = select_bins(frame_size, array_cfg.sample_rate, f_low, f_high)
+        binw = np.ones(len(bins), np.float32)
+        self.shard = shard
+        if shard is not None:
+            pad = (-len(bins)) % shard.size
+            bins = np.concatenate([bins, np.repeat(bins[-1:], pad)])
+            binw = np.concatenate([binw, np.zeros(pad, np.float32)])
+            part = shard.part(len(bins))
+            bins, binw = bins[part], binw[part]
         freqs = np.fft.rfftfreq(frame_size, 1.0 / array_cfg.sample_rate)[bins]
         v = steering_matrix(points, theta, phi, freqs, array_cfg)
         self.register_buffer("v_emb", torch.as_tensor(
             np.concatenate([v[0], v[1]], axis=-1), device=device))
         self.register_buffer("dft", torch.as_tensor(
             dft_tables(frame_size, bins), device=device))
-        self.register_buffer("binw", torch.ones(len(bins), device=device))
+        self.register_buffer("binw", torch.as_tensor(binw, device=device))
         self.register_buffer("mask", None if channel_mask is None else
                              torch.as_tensor(channel_mask, dtype=torch.float32,
                                              device=device))
@@ -145,6 +158,11 @@ class CovarianceStep(nn.Module):
         self.n_bins = len(bins)
         self.channels = int(np.asarray(points).shape[1])
         self.n_directions = int(np.asarray(theta).size)
+
+    def reduce(self, total):
+        """A sum over the bins completed over the ranks of a bin-sharded
+        step (an all-reduce; the total itself on one device)."""
+        return total if self.shard is None else self.shard.all_reduce(total)
 
     def covariance(self, state, block):
         """The EMA covariance planes after ``block`` [C, T]; the first block
@@ -191,9 +209,10 @@ class MvdrStep(CovarianceStep):
                  frame_size: int = 64, hop: int = 32, f_low: float = 550.0,
                  f_high: float = 9000.0, ema_alpha: float = 0.1,
                  diagonal_loading: float = 1e-3, channel_mask=None,
-                 weight_refresh: int = 1, device="cuda"):
+                 weight_refresh: int = 1, device="cuda", shard=None):
         super().__init__(points, theta, phi, array_cfg, frame_size, hop, f_low,
-                         f_high, ema_alpha, channel_mask, resolve_device(device))
+                         f_high, ema_alpha, channel_mask, resolve_device(device),
+                         shard)
         self.diagonal_loading = diagonal_loading
         self.weight_refresh = int(weight_refresh)
 
@@ -219,7 +238,8 @@ class MvdrStep(CovarianceStep):
         v_emb[f, d]||^2``."""
         y = torch.linalg.solve_triangular(chol, self.v_emb.mT, upper=False)
         denom = (y * y).sum(dim=1)                                  # [F, D]
-        return (self.binw[:, None] / torch.clamp(denom, min=1e-20)).sum(0)
+        return self.reduce(
+            (self.binw[:, None] / torch.clamp(denom, min=1e-20)).sum(0))
 
     def forward(self, state: MvdrState, block):
         refresh = self.weight_refresh > 1
@@ -249,3 +269,23 @@ def make_mvdr_step(points, theta, phi, array_cfg: ArrayConfig = ArrayConfig(),
                     f_high, ema_alpha, diagonal_loading, channel_mask,
                     weight_refresh, device)
     return step, step.n_bins
+
+
+def make_sharded_mvdr_step(points, theta, phi, mesh, axis_name: str = "dir",
+                           array_cfg: ArrayConfig = ArrayConfig(),
+                           frame_size: int = 64, hop: int = 32,
+                           f_low: float = 550.0, f_high: float = 9000.0,
+                           ema_alpha: float = 0.1,
+                           diagonal_loading: float = 1e-3, channel_mask=None,
+                           weight_refresh: int = 1, device="cuda"):
+    """Bin-sharded MVDR over the ranks of ``mesh``'s ``axis_name``:
+    ``(step, state)``, the :class:`MvdrStep` of this rank's bins (padding
+    bins carry zero weight) and its initial state.  Each rank takes the
+    whole block, folds and solves only its bins, and the [D] Capon powers
+    are all-reduced; ``weight_refresh`` decimates the solve as in
+    :func:`make_mvdr_step` (the carried spectrum is replicated)."""
+    step = MvdrStep(points, theta, phi, array_cfg, frame_size, hop, f_low,
+                    f_high, ema_alpha, diagonal_loading, channel_mask,
+                    weight_refresh, Layout(mesh).device(device),
+                    Axis(mesh, axis_name))
+    return step, step.init()

@@ -24,12 +24,14 @@ here on the host, so a block never waits for the device.
 from __future__ import annotations
 
 import math
+import sys
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 from beamforming_lk_tpu_torch.ops import delay as dl
@@ -126,6 +128,51 @@ def probe_windows(window, dsp, span: int):
     return win_bp, pw
 
 
+class ProbeChain(nn.Module):
+    """Chained 4-probe monopulse sub-steps of packed rows, the XLA chain's
+    probe evaluation: one launch of the monopulse-chain kernel (K0), or,
+    with the channels sharded over a mesh's ``ch`` axis of more than one
+    rank, per sub-step one DAS-beam kernel launch (K4) on this rank's
+    channels and an all-reduce of the partial beams
+    (:func:`ops.cuda_tracker.monopulse_chain_sharded`).  ``xyz`` holds the
+    full array's geometry on every rank, so the stencil's min over the
+    channels is the global one with no collective."""
+
+    def __init__(self, cfg, dsp, array_cfg, points, channel_mask, span: int,
+                 layout=None, device=None):
+        super().__init__()
+        self.dsp, self.span = dsp, span
+        self.register_buffer("xyz", ctk.pack_geometry(
+            points, array_cfg.samples_per_meter, channel_mask, device=device))
+        self.kw = dict(
+            span=span, taps=dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps,
+            theta_limit=cfg.theta_limit, divisor=float(dsp.block_size),
+            probe_layout=cfg.probe_layout, interp=dsp.interp,
+            fir_phases=dsp.fir_phases,
+        )
+        self.shard = None if layout is None or layout.ch.size == 1 else layout.ch
+        self.channels = (None if self.shard is None
+                         else self.shard.part(np.shape(points)[1]))
+
+    def windows(self, window):
+        """(bandpassed, raw) compact probe windows of this rank's window
+        [..., C_loc, T+S] (:func:`probe_windows`); the bandpassed one stays
+        f32 for the sharded chain, whose kernel rounds it."""
+        if self.shard is None:
+            return probe_windows(window, self.dsp, self.span)
+        pw = window[..., self.dsp.shift_range - self.span:].contiguous()
+        return ctk.bandpass_window(pw), pw
+
+    def forward(self, win_bp, rows, active):
+        """Rows [8, P] after ``active.shape[0]`` sub-steps -> [6, P]."""
+        if self.shard is None:
+            return ctk.monopulse_chain(self.xyz, win_bp, rows, active, **self.kw)
+        return ctk.monopulse_chain_sharded(
+            self.xyz, win_bp, rows, active, channels=self.channels,
+            reduce=self.shard.all_reduce, compute=self.dsp.probe_compute,
+            **self.kw)
+
+
 def _merge_trackers(trackers: Particles, tracking, start, closeness: float):
     """Absorb pairwise-close trackers, oldest wins (gradient_ascend.cpp:
     332-351): tracker m stops if a tracking tracker n lies within
@@ -151,7 +198,7 @@ class _SwarmRows(nn.Module):
     the unpacking of their rows."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask, probe_span,
-                 n_miso: int, refine: int, device):
+                 n_miso: int, refine: int, device, layout=None):
         super().__init__()
         self.cfg, self.dsp = cfg, dsp
         self.taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
@@ -159,6 +206,16 @@ class _SwarmRows(nn.Module):
             dsp.shift_range if probe_span is None
             else min(probe_span, dsp.shift_range)
         )
+        # A mesh with a ch axis takes the XLA chain (the JAX package's
+        # _use_pallas_chain gate), and says so where the kernel was asked.
+        sharded = layout is not None and layout.has_ch
+        if sharded and cfg.probe_kernel == "pallas":
+            print("tracker probe_kernel 'pallas' unavailable (sharded "
+                  "channels); using the XLA monopulse chain (see "
+                  "docs/performance.md)", file=sys.stderr)
+        self.xla = cfg.probe_kernel == "xla" or sharded
+        self.probes = ProbeChain(cfg, dsp, array_cfg, points, channel_mask,
+                                 self.span, layout if sharded else None, device)
         self.n_miso, self.refine = n_miso, refine
         nt, ns = cfg.n_trackers, cfg.n_seekers
         p = nt + n_miso + ns
@@ -180,9 +237,6 @@ class _SwarmRows(nn.Module):
         act[..., nt:nt + n_miso] = (slots < refine)[..., None]
         self.register_buffer("consts", torch.as_tensor(consts, device=device))
         self.register_buffer("act_static", torch.as_tensor(act, device=device))
-        self.register_buffer("xyz", ctk.pack_geometry(
-            points, array_cfg.samples_per_meter, channel_mask, device=device
-        ))
         self.register_buffer("zeros_tm", torch.zeros(
             (2, cfg.iterations, nt + n_miso), dtype=torch.float32, device=device
         ))
@@ -204,23 +258,23 @@ class _SwarmRows(nn.Module):
             min_power_fraction=cfg.min_power_fraction,
         )
 
-    def _chain_kw(self):
-        kw = self._kernel_kw()
-        return {k: kw[k] for k in ("span", "taps", "theta_limit", "divisor",
-                                   "probe_layout", "interp", "fir_phases")}
-
     def _prep(self, window):
         """Kernel operands of a window [C, T+S], or of a stack [K, C, T+S]
         batched: the reference power (bandpass power of channel 0's block,
         gradient_ascend.cpp:304-313, at window offset S - taps), the
-        bandpassed compact probe window and the raw compact window."""
+        bandpassed compact probe window and the raw compact window.  With
+        the channels sharded, global channel 0 lives on the first ``ch``
+        rank, which alone contributes to the all-reduce."""
         dsp, t_len = self.dsp, self.dsp.block_size
         b0 = dsp.shift_range - self.taps
         reference = dl.das_power(
             window[..., 0, b0:b0 + t_len], use_bandpass=True,
             divisor=t_len - 2,
         )
-        return (reference,) + probe_windows(window, dsp, self.span)
+        shard = self.probes.shard
+        if shard is not None:
+            reference = shard.all_reduce(reference * float(shard.index == 0))
+        return (reference,) + self.probes.windows(window)
 
     def _draw(self, state: SwarmState, device, generator, draws):
         """The seekers after this block's reset (every
@@ -298,9 +352,9 @@ class _SwarmRows(nn.Module):
         reference, win_bp, pw = self._prep(window)
         seekers, jumps = self._draw(state, window.device, generator, draws)
         beam = None
-        if self.cfg.probe_kernel == "pallas":
+        if not self.xla:
             out, mean, beam = ctk.swarm_chain(
-                self.xyz, win_bp, pw, self._rows(state, miso_particle, seekers),
+                self.probes.xyz, win_bp, pw, self._rows(state, miso_particle, seekers),
                 jumps, reference, block_index=block_index, **self._kernel_kw(),
             )
             nt = self.cfg.n_trackers
@@ -324,8 +378,10 @@ class _SwarmRows(nn.Module):
         budget.  The JAX package steps the seekers after the trackers'
         chain and their merge; riding sub-step 0 instead gives the same
         numbers, because each row's sub-step reads only its own state and
-        the window, and the merge reads no seeker.  Returns (rows [6, P],
-        post-prune tracking [nt], start [nt], mean [])."""
+        the window, and the merge reads no seeker.  With the channels
+        sharded the chain runs through :class:`ProbeChain`'s K4 launches
+        and all-reduces instead.  Returns (rows [6, P], post-prune tracking
+        [nt], start [nt], mean [])."""
         cfg = self.cfg
         nt = cfg.n_trackers
         parts = self._parts(state, miso_particle, seekers)
@@ -336,10 +392,7 @@ class _SwarmRows(nn.Module):
         for it in range(cfg.iterations):
             active = self.act_static[it] + torch.cat(
                 [tracking.to(torch.float32), self.zeros_sm])
-            rows = ctk.monopulse_chain(
-                self.xyz, win_bp, torch.cat([rows, dyn]), active,
-                **self._chain_kw(),
-            )
+            rows = self.probes(win_bp, torch.cat([rows, dyn]), active)
             th, ph, gt, gp, rad, err = rows.unbind(0)
             n_tracking = tracking.sum()
 
@@ -402,9 +455,9 @@ class SwarmStep(_SwarmRows):
     (state, Targets)``; ``draws`` as :class:`FusedSwarmStep`'s."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 probe_span=None, device=None):
+                 probe_span=None, device=None, layout=None):
         super().__init__(cfg, dsp, array_cfg, points, channel_mask,
-                         probe_span, 0, 0, device)
+                         probe_span, 0, 0, device, layout)
 
     def forward(self, state: SwarmState, window, block_index: int,
                 generator: Optional[torch.Generator] = None, draws=None):
@@ -426,16 +479,17 @@ class FusedSwarmStep(_SwarmRows):
     package's own draws through it)."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 probe_span=None, miso_refine_steps: int = 3, device=None):
+                 probe_span=None, miso_refine_steps: int = 3, device=None,
+                 layout=None):
         if cfg.iterations * cfg.tracker_steps < miso_refine_steps:
             raise ValueError(
                 f"fused step needs iterations*tracker_steps >= "
                 f"{miso_refine_steps}; got {cfg.iterations}*{cfg.tracker_steps}"
             )
         super().__init__(cfg, dsp, array_cfg, points, channel_mask,
-                         probe_span, 1, miso_refine_steps, device)
+                         probe_span, 1, miso_refine_steps, device, layout)
         self.beam = MisoBeam(dsp, array_cfg, points, channel_mask, self.span,
-                             device)
+                             device, layout)
 
     def forward(self, state: SwarmState, miso_particle: Particles, window,
                 block_index: int, generator: Optional[torch.Generator] = None,
@@ -451,12 +505,18 @@ class MisoBeam(nn.Module):
     """The f32 MISO audio beam at a listener direction (miso.cpp:41-55):
     steering delays, the dense stencil over the probe span times the
     channel mask, contracted with the unfolded raw compact window in plain
-    PyTorch (the JAX package runs this product outside any kernel too)."""
+    PyTorch (the JAX package runs this product outside any kernel too).
+    With the channels sharded over a mesh (``layout``), the delays come
+    from the full array and this rank's channels' partial beam is
+    all-reduced over ``ch``."""
 
     def __init__(self, dsp, array_cfg, points, channel_mask, span: int,
-                 device=None):
+                 device=None, layout=None):
         super().__init__()
         self.dsp, self.span = dsp, span
+        self.channels = (slice(None) if layout is None
+                         else layout.ch.part(np.shape(points)[1]))
+        self.reduce = (lambda beam: beam) if layout is None else layout.ch.all_reduce
         self.spm = array_cfg.samples_per_meter
         self.register_buffer("points", torch.as_tensor(
             np.asarray(points, np.float32), device=device))
@@ -476,7 +536,7 @@ class MisoBeam(nn.Module):
         if self.mask is not None:
             w = w * self.mask[:, None]
         unf = dl.unfold_window(pw, self.span, pw.shape[-1] - self.span)
-        return dl.das_beam_unfolded(unf, w)[0]
+        return self.reduce(dl.das_beam_unfolded(unf, w[:, self.channels]))[0]
 
 
 class FusedChunkStep(FusedSwarmStep):
@@ -541,7 +601,7 @@ class FusedChunkStep(FusedSwarmStep):
         ], dim=3)
 
         out, mean, beams = ctk.swarm_chunk(
-            self.xyz, win_bp, pw, self._rows(state, miso_particle, state.seekers),
+            self.probes.xyz, win_bp, pw, self._rows(state, miso_particle, state.seekers),
             jumps, resets, references, block_index0=block_index0,
             **self._kernel_kw(),
         )
@@ -562,23 +622,25 @@ def _require_probe_kernel(cfg, allowed):
 
 
 def make_swarm_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
-                         probe_span=None, device=None) -> SwarmStep:
+                         probe_span=None, device=None,
+                         layout=None) -> SwarmStep:
     """The unfused swarm per-block update (the JAX package's function of
-    the same name)."""
+    the same name); ``layout`` (``parallel.mesh.Layout``) shards it as the
+    JAX package's ``axis_name``."""
     _require_probe_kernel(cfg, ("pallas", "xla"))
     return SwarmStep(cfg, dsp, array_cfg, points, channel_mask, probe_span,
-                     device)
+                     device, layout)
 
 
 def make_fused_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                          probe_span=None, miso_refine_steps: int = 3,
-                         device=None) -> FusedSwarmStep:
+                         device=None, layout=None) -> FusedSwarmStep:
     """The fused swarm + MISO per-block update (the JAX package's function
-    of the same name)."""
+    of the same name); ``layout`` as :func:`make_swarm_step_impl`'s."""
     _require_probe_kernel(cfg, ("pallas", "xla"))
     return FusedSwarmStep(
         cfg, dsp, array_cfg, points, channel_mask, probe_span,
-        miso_refine_steps, device,
+        miso_refine_steps, device, layout,
     )
 
 
@@ -594,3 +656,17 @@ def make_fused_chunk_impl(cfg, dsp, array_cfg, points, channel_mask=None,
         cfg, dsp, array_cfg, points, channel_mask, probe_span,
         miso_refine_steps, device,
     )
+
+
+def make_swarm_step(points, cfg, dsp, array_cfg, channel_mask=None,
+                    device="cuda") -> SwarmStep:
+    """The single-device per-block swarm update on ``device`` (the card by
+    default), with its probe span sized from the aperture: ``step(state,
+    window, block_index) -> (state, Targets)`` for the DAS window of
+    ``ring_window``.  The FIR stencil comes from ``dsp`` (the kernels'
+    closed form), where the JAX package also takes a ``fir_bank``."""
+    taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
+    span = dl.probe_span(points, array_cfg.samples_per_meter, taps,
+                         dsp.shift_range)
+    return make_swarm_step_impl(cfg, dsp, array_cfg, points, channel_mask,
+                                probe_span=span, device=resolve_device(device))

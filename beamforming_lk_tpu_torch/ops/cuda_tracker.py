@@ -192,12 +192,13 @@ def _gather_beams(win, shift, w, n_out):
 
 
 def _substep(active, state, rate, spread, xyz, window_bp, k, *, span, taps,
-             interp, fir_phases, inv_div, quadrant, theta_limit):
+             interp, fir_phases, inv_div, quadrant, theta_limit, beams=None):
     """One 4-probe monopulse sub-step of every row, in the kernels' f32
     arithmetic (probe weights rounded to the window's dtype before the
     product, as the TPU kernels' ``w.astype(win.dtype)``), with inactive
     rows masked back: ``state`` is (theta, phi, grad_theta, grad_phi,
-    radius, error), each [P]; returns the new state."""
+    radius, error), each [P]; returns the new state.  ``beams(shift, w)``
+    replaces the gather of the probe beams [4P, T-2] from ``window_bp``."""
     theta, phi, gt, gp, rad, err = state
     p = theta.shape[0]
     ux, uy, uz = _probe_dirs(theta, phi, spread, k)              # [4, P]
@@ -206,7 +207,10 @@ def _substep(active, state, rate, spread, xyz, window_bp, k, *, span, taps,
         interp, fir_phases, k["blackman"],
     )
     w = w.to(window_bp.dtype).to(torch.float32)
-    beam = _gather_beams(window_bp, shift, w, window_bp.shape[1] - span)
+    if beams is None:
+        beam = _gather_beams(window_bp, shift, w, window_bp.shape[1] - span)
+    else:
+        beam = beams(shift, w)
     q1, q2, q3, q4 = ((beam * beam).sum(dim=1) * inv_div).reshape(4, p)
     total = torch.clamp(q1 + q2 + q3 + q4, min=1e-30)
     if quadrant:
@@ -724,3 +728,40 @@ def monopulse_chain(
 
 
 monopulse_chain.launches = 0
+
+
+def monopulse_chain_sharded(
+    xyz, window_bp, rows, active, *, channels: slice, reduce, compute,
+    span, taps=dl.LINEAR_TAPS, theta_limit, divisor, probe_layout="quadrant",
+    interp="linear", fir_phases=101,
+):
+    """:func:`monopulse_chain` with the array's channels sharded over ranks
+    (the JAX package's XLA chain under a ``ch`` mesh axis): each sub-step
+    needs the full array's probe beams before it squares them, so the chain
+    runs one sub-step at a time.  Per sub-step: the probe stencil from the
+    full geometry ``xyz`` [4, C] (its min over all channels, as the JAX
+    package's ``pmin``), this rank's ``channels`` of it through the
+    DAS-beam kernel (:func:`ops.cuda_das.das_beam`, K4; its twin on the
+    CPU) on this rank's window ``window_bp`` [C_loc, span+T-2] (f32; with
+    ``compute="bfloat16"`` the kernel rounds the window and the weights),
+    ``reduce`` (the all-reduce over ``ch``) of the partial beams [4P, T-2],
+    then :func:`_substep`'s powers and update.  Returns the six state rows
+    [6, P]."""
+    from beamforming_lk_tpu_torch.ops.cuda_das import das_beam
+
+    def beams(shift, w):
+        part = das_beam(window_bp, shift[:, channels].to(torch.int32).contiguous(),
+                        w[:, channels].contiguous(), span=span, compute=compute)
+        return reduce(part)
+
+    k = _consts(probe_layout, taps, theta_limit)
+    state = tuple(rows[:CHAIN_STATE].unbind(0))
+    for act in active:
+        state = _substep(
+            act > 0.0, state, rows[6], rows[7], xyz, window_bp, k, span=span,
+            taps=taps, interp=interp, fir_phases=fir_phases,
+            inv_div=1.0 / float(divisor),
+            quadrant=probe_layout == "quadrant", theta_limit=theta_limit,
+            beams=beams,
+        )
+    return torch.stack(state)

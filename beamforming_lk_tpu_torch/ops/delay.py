@@ -135,6 +135,17 @@ def das_beam_unfolded(unf, weights):
     )
 
 
+def das_beam(window, weights):
+    """beam[..., D, T] of a window [C, T + S] through a dense stencil
+    ``weights`` [..., D, C, S]: one [D, C*S] by [C*S, T] product of the
+    unfolded window, in float32 (the JAX package's dense ``das_beam``; the
+    heatmap's hand-written kernel is ``ops.cuda_das.das_beam``)."""
+    s = weights.shape[-1]
+    return das_beam_unfolded(
+        unfold_window(window, s, window.shape[-1] - s), weights
+    )
+
+
 def bandpass_ma(beam):
     """3-tap bandpass ``0.5*y[t] - 0.25*(y[t-1] + y[t+1])`` on interior
     samples: [..., T] -> [..., T-2] (mimo.cpp:131-137)."""
@@ -147,3 +158,22 @@ def das_power(beam, *, use_bandpass: bool = True, divisor=None):
         divisor = beam.shape[-1]
     y = bandpass_ma(beam) if use_bandpass else beam
     return torch.sum(y * y, dim=-1) / float(divisor)
+
+
+def das_power_from_delays(window, delays, *, shift_range: int,
+                          mode: str = "linear", fir_bank=None,
+                          channel_mask=None, use_bandpass: bool = True):
+    """Delays [..., D, C] -> powers [..., D] through the dense stencil,
+    normalized by ``T * n_active`` as in the MIMO worker; ``channel_mask``
+    [C] zeroes dead or hot channels (the reference compacts an index list,
+    aw_processing_unit.cpp:193-199)."""
+    w = das_weights(delays, shift_range, mode, fir_bank)
+    if channel_mask is not None:
+        mask = torch.as_tensor(channel_mask, dtype=w.dtype, device=w.device)
+        w = w * mask[..., :, None]
+        count = float(mask.sum())
+    else:
+        count = float(w.shape[-2])
+    beam = das_beam(window, w)
+    return das_power(beam, use_bandpass=use_bandpass,
+                     divisor=beam.shape[-1] * count)

@@ -100,12 +100,40 @@ Phases (any failed check raises, so the exit code is non-zero):
     target and the last heatmap's peak on the source, the stages;
 14. one JSON line of kernel results (each kernel's time, its plain twin's,
     its bound from this run's operands and active rows against the H100's
-    published peaks, and a library call's time where one exists), then
-    the final status line.
+    published peaks, and a library call's time where one exists: for K4,
+    10's ``torch.matmul`` of the dense stencil by the unfolded window, the
+    JAX package's ``das_beam``), then the final status line; printed after
+    phase 15, whose K0 and K4 launches they count:
+15a. the mesh on one rank: a world-size-1 NCCL group and a 1x1 mesh,
+    ``AwpuPipeline(realtime(Config()), channels=256, mesh=mesh)`` on 96
+    blocks through ``process_block`` and 24 through ``process_blocks``,
+    block by block against the unsharded pipeline on the XLA chain from
+    the same seed at the JAX package's sharded bounds; K0 twice a block, no
+    K4, locked, the ms a block of both;
+15b. two ranks of this script sharing the card through gloo (NCCL refuses
+    two ranks of one communicator on one GPU), realtime, 256 mics, 48
+    blocks, at (ch, dir) = (2, 1) (the dense heatmap through K4 every 3rd
+    block, K4 for the probe beams of each of the 10 sub-steps) and (1, 2)
+    (the fft heatmap sliced per rank, K0 as in 15a): launches and
+    all-reduces a block, the ms a block, the lock; then each block started
+    from a one-rank pipeline's carried state on the same card and held
+    against it at the sharded bounds, K4's operands of the first such block
+    at (2, 1) (a sub-step's 108 probe rows, the last of its 32-row blocks
+    partly empty, and the map's (dir, ch) block, each over the rank's 128
+    channels) held against its twin on the same tensors at 1e-5 of the
+    peak;
+15c. ``make_sharded_das_power`` over ch = 2 at 1024 mics (shift_range 192)
+    against one rank, the peak on the source; the time-sharded beam (t of
+    size 1: gloo sends no CUDA tensor point to point);
+15d. ``make_sharded_mvdr_step`` and ``make_sharded_music_step`` (subspace)
+    over dir = 2 at 64 mics against the single-device estimators on the
+    card (MVDR 2e-3 relative, MUSIC by its invariants).  A rank that fails
+    fails the phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1522,6 +1550,7 @@ def compare_das(channels: int, compute: str, device, interp: str = "linear",
     d, c, taps = model.tap_weights.shape
     bound_ms, bound_by = bound(2.0 * d * c * taps * t,
                                _nbytes(stack[0], *args) + 4 * d * t)
+    library_ms = _das_library(model, stack[0], compute, ms)
     plan = cd.das_beam_plan(1, d, c, t, s, taps)
     print(f"  tile plan: grid {plan['grid']} x {plan['threads']} threads, "
           f"{plan['dirs_per_block']} directions a block (one a warp, "
@@ -1533,7 +1562,48 @@ def compare_das(channels: int, compute: str, device, interp: str = "linear",
           f"{bound_ms * 1e3:.3f} us ({bound_by}, {bound_ms / ms:.1%} of it)",
           flush=True)
     return dict(err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def _das_library(model, window, compute: str, kernel_ms: float) -> float:
+    """The library call for K4: the JAX package's ``das_beam``, one
+    ``torch.matmul`` of the dense stencil [D, C*S] by the unfolded window
+    [C*S, T], in ``compute`` (f32 without TF32, or bf16 with a bf16
+    result), checked against the twin (1e-5 of the peak in f32, 1e-2 in
+    bf16).  The unfold, a contiguous copy, is made outside the timed call;
+    a second time takes it inside.  Returns the product's ms."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+
+    d, c, taps = model.tap_weights.shape
+    s = model.shift_range
+    t = window.shape[-1] - s
+    dtype = torch.bfloat16 if compute == "bfloat16" else torch.float32
+    stencil = torch.zeros((d, c, s), dtype=torch.float32, device=window.device)
+    idx = model.shift.long()[..., None] + torch.arange(taps, device=window.device)
+    stencil = stencil.scatter_(-1, idx, model.tap_weights).reshape(d, c * s).to(dtype)
+
+    def unfolded():
+        return window.unfold(-1, t, 1)[:, :s, :].reshape(c * s, t).to(dtype)
+
+    unf = unfolded()
+    got = torch.matmul(stencil, unf).float()
+    want = cd.das_beam_reference(window, model.shift, model.tap_weights, span=s,
+                                 compute=compute)
+    rel = float((got - want).abs().max() / want.abs().max())
+    tol = 1e-2 if compute == "bfloat16" else 1e-5
+    if not rel <= tol:
+        raise AssertionError(f"dense-stencil matmul vs twin {rel:.3g} > {tol}")
+    lib_ms = _cuda_ms(lambda: torch.matmul(stencil, unf), 20)
+    with_unfold = _cuda_ms(lambda: torch.matmul(stencil, unfolded()), 20)
+    print(f"  library: torch.matmul of the dense stencil [{d}, {c * s}] by the "
+          f"unfolded window [{c * s}, {t}] in {compute} (the JAX package's "
+          f"das_beam), {rel:.3g} of the peak from the twin: {lib_ms:.4f} ms "
+          f"with the unfold outside the timed call, {with_unfold:.4f} ms with "
+          f"it inside; kernel {kernel_ms:.4f} ms "
+          f"({'kernel' if kernel_ms < lib_ms else 'matmul'} faster)", flush=True)
+    return lib_ms
 
 
 def monopulse_operands(channels: int, compute: str, device,
@@ -2226,6 +2296,452 @@ def run_cli_adaptive(tmp: str):
     return k2
 
 
+# Phase 15: the mesh on the card.  The JAX package's bounds for its sharded
+# results (tests/test_awpu.py:50-70): powers rtol 2e-4 / atol 1e-14, the
+# MISO beam rtol 2e-3 / atol 2e-5, target theta rtol 1e-3 / atol 1e-4.
+MESH_BLOCKS = 48
+MESH_TOL = dict(powers=(2e-4, 1e-14), beam=(2e-3, 2e-5), theta=(1e-3, 1e-4))
+
+
+def _collectives():
+    from beamforming_lk_tpu_torch.parallel import mesh as pm
+
+    return pm.collectives
+
+
+def _reset_mesh_counts():
+    _reset_counts()
+    for k in _collectives():
+        _collectives()[k] = 0
+
+
+def _excess(got, want, tol) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)``: within the
+    bound where it is at most 1."""
+    rtol, atol = tol
+    got, want = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+                 for x in (got, want))
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
+def _hold_mesh(what: str, outs, refs, gather) -> dict:
+    """Per-block outputs of a sharded run against a one-rank run's, at
+    MESH_TOL; ``gather`` assembles a rank's powers.  Raises past a bound or
+    on unequal target flags; returns the worst excess of each output."""
+    worst = dict(powers=0.0, beam=0.0, theta=0.0)
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        worst["powers"] = max(worst["powers"], _excess(gather(o.powers), r.powers,
+                                                      MESH_TOL["powers"]))
+        worst["beam"] = max(worst["beam"], _excess(o.miso_beam, r.miso_beam,
+                                                  MESH_TOL["beam"]))
+        worst["theta"] = max(worst["theta"], _excess(o.targets.theta, r.targets.theta,
+                                                    MESH_TOL["theta"]))
+        if not bool((o.targets.valid == r.targets.valid).all()):
+            raise AssertionError(f"{what}: target flags differ at block {i}")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"{what}: past the sharded bounds {worst}")
+    return worst
+
+
+def _xla(cfg, backend=None):
+    """``cfg`` with the XLA-chain backend (and the heatmap ``backend``)."""
+    tracker = dataclasses.replace(cfg.tracker, probe_kernel="xla")
+    mimo = cfg.mimo if backend is None else dataclasses.replace(cfg.mimo,
+                                                                backend=backend)
+    return dataclasses.replace(cfg, tracker=tracker, mimo=mimo)
+
+
+def run_mesh_one_rank():
+    """15a: a world-size-1 NCCL group and a 1x1 mesh:
+    ``AwpuPipeline(realtime(Config()), channels=256, mesh=mesh)`` on 96
+    blocks through ``process_block``, then 24 through ``process_blocks``,
+    against the unsharded pipeline from the same seed on the XLA chain (the
+    backend a mesh takes), block by block at the sharded bounds; K0 twice a
+    block, no K4; locked; ms a block of both.  Returns (K0 launches, ms a
+    block under the mesh, unsharded ms a block)."""
+    import torch
+    import torch.distributed as dist
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.parallel import single_device_mesh
+    from beamforming_lk_tpu_torch.parallel.multihost import initialize
+
+    initialize(backend="nccl")
+    try:
+        mesh = single_device_mesh()
+        cfg = realtime(Config())
+        pipes = [AwpuPipeline(cfg, channels=256, seed=0, mesh=mesh, device="cuda"),
+                 AwpuPipeline(_xla(cfg), channels=256, seed=0, device="cuda")]
+        blocks = _plane_wave_blocks(pipes[0], cfg, 256, "cuda", N_BLOCKS + CHUNK * 2)
+        runs, ms = [], []
+        for k, pipe in enumerate(pipes):
+            _reset_mesh_counts()
+            outs = []
+            for i in range(N_BLOCKS):
+                if i == 16:
+                    torch.cuda.synchronize()
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                outs.append(pipe.process_block(blocks[i]))
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1) / (N_BLOCKS - 16))
+            stacked = pipe.process_blocks(blocks[N_BLOCKS:])
+            outs += [type(stacked)(stacked.powers[i], type(stacked.targets)(
+                *(f[i] for f in stacked.targets)), stacked.miso_beam[i],
+                stacked.prev_max[i]) for i in range(CHUNK * 2)]
+            if k == 0:
+                n = N_BLOCKS + CHUNK * 2
+                counts = _counts(monopulse_chain=2 * n)
+                if any(_collectives().values()):
+                    raise AssertionError(f"15a: collectives {_collectives()} on a 1x1 mesh")
+                maps = [o.powers for o in outs[::cfg.mimo.heatmap_every]]
+                lock = check_lock("15a mesh 1x1", cfg, pipe, outs[-1].miso_beam, maps[-1])
+            runs.append(outs)
+        worst = _hold_mesh("15a", runs[0], runs[1], lambda p: p)
+    finally:
+        dist.destroy_process_group()
+    print(f"15a mesh 1x1 (NCCL, one rank), realtime, 256 mics, {N_BLOCKS} blocks "
+          f"live + {CHUNK * 2} replayed: {counts['monopulse_chain']} K0 launches "
+          f"(2 a block), no K4, no collective; {lock}; {ms[0]:.4f} ms/block "
+          f"device under the mesh, {ms[1]:.4f} unsharded on the XLA chain; vs "
+          f"unsharded, worst excess over the sharded bounds "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()), flush=True)
+    return counts["monopulse_chain"], ms[0], ms[1]
+
+
+def _clone(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone(v) for v in tree))
+    return tree
+
+
+@contextlib.contextmanager
+def _keep_das_operands():
+    """While open, ``ops.cuda_das.das_beam`` keeps a copy of the operands
+    of its first call at each row count D, in the dict it yields (D ->
+    (window, shift, tap_weights, keywords)); each call still launches the
+    kernel once (the wrapper counts on its module's name, so the stand-in
+    carries the count)."""
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+
+    kernel, kept = cd.das_beam, {}
+
+    def keep(window, shift, tap_weights, **kw):
+        if shift.shape[0] not in kept:
+            kept[shift.shape[0]] = (window.clone(), shift.clone(),
+                                    tap_weights.clone(), kw)
+        return kernel(window, shift, tap_weights, **kw)
+
+    keep.launches = kernel.launches
+    cd.das_beam = keep
+    try:
+        yield kept
+    finally:
+        kernel.launches = keep.launches
+        cd.das_beam = kernel
+
+
+def _hold_das_operands(kept) -> dict:
+    """K4 on operands the sharded step gave it (:func:`_keep_das_operands`)
+    against its twin on the same tensors: beams within 1e-5 of the peak,
+    as :func:`compare_das` holds it, over all rows and over the rows past
+    the last full block of 32 directions (a block partly empty); the shift
+    within [0, span - taps].  Returns, by row count, (channels, compute,
+    rows in the partly empty block, max abs error, its share of the peak,
+    the tail's share)."""
+    import torch
+
+    from beamforming_lk_tpu_torch.ops import cuda_das as cd
+
+    held = {}
+    for d, (window, shift, w, kw) in sorted(kept.items()):
+        span, taps = kw["span"], w.shape[-1]
+        if not (0 <= int(shift.min()) and int(shift.max()) <= span - taps):
+            raise AssertionError(f"15b K4 operands at {d} rows: shift outside "
+                                 f"[0, {span - taps}]")
+        got = cd.das_beam(window, shift, w, **kw)
+        want = cd.das_beam_reference(window, shift, w, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        peak = float(want.abs().max())
+        per_block = cd.das_beam_plan(1, d, 1, 1, span, taps)["dirs_per_block"]
+        full = d // per_block * per_block
+        rel = float(err.max()) / peak
+        tail = float(err[full:].max()) / peak if full < d else 0.0
+        if not (torch.isfinite(got).all() and rel <= 1e-5 and tail <= 1e-5):
+            raise AssertionError(f"15b K4 vs twin at {d} rows x {shift.shape[1]} "
+                                 f"channels: {rel:.3g} of the peak, tail "
+                                 f"{tail:.3g} > 1e-5")
+        held[d] = (shift.shape[1], kw["compute"], d - full, float(err.max()),
+                   rel, tail)
+    return held
+
+
+def _mesh_awpu(shape) -> dict:
+    """15b on this rank: the realtime profile at 256 mics on a (ch, dir)
+    ``shape`` mesh.  A free run of MESH_BLOCKS blocks (launches, all-reduces
+    and ms a block after 8 warm blocks, the lock), then a lockstep run
+    against a one-rank pipeline on the same card (the same profile on the
+    XLA chain, its heatmap dense where ch > 1, as the mesh's), the sharded
+    step started each block from the one-rank run's carried swarm,
+    listener and EMA, held at the sharded bounds."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.parallel import make_mesh
+
+    cfg = realtime(Config())
+    mesh = make_mesh(shape)
+    pipe = AwpuPipeline(cfg, channels=256, seed=0, mesh=mesh, device="cuda")
+    blocks = _plane_wave_blocks(pipe, cfg, 256, pipe.device, MESH_BLOCKS)
+    warm = 8
+    _reset_mesh_counts()
+    for i in range(MESH_BLOCKS):
+        if i == warm:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            h0 = time.perf_counter()
+        out = pipe.process_block(blocks[i])
+        if i % cfg.mimo.heatmap_every == 0:
+            last_map = out.powers
+    e1 = torch.cuda.Event(enable_timing=True)
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / (MESH_BLOCKS - warm)
+    ms = e0.elapsed_time(e1) / (MESH_BLOCKS - warm)
+    launches = {k: v.launches for k, v in _wrappers().items()}
+    coll = dict(_collectives())
+    ch = shape[0]
+    maps = -(-MESH_BLOCKS // cfg.mimo.heatmap_every)
+    want = (dict(das_beam=maps + 10 * MESH_BLOCKS) if ch > 1
+            else dict(monopulse_chain=2 * MESH_BLOCKS))
+    _counts(**want)
+    lock = check_lock(f"15b mesh {shape}", cfg, pipe, out.miso_beam,
+                      pipe.layout.dir.all_gather(last_map))
+    # One all-reduce of a sub-step's partial probe beams (27 rows x 4
+    # probes x 254 samples, f32), host clock, as a block issues it.
+    beams = torch.zeros((108, 254), device=pipe.device)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(20):
+        pipe.layout.ch.all_reduce(beams)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - h0) * 1e3 / 20
+
+    ref = AwpuPipeline(_xla(cfg, "dense" if ch > 1 else None), channels=256,
+                       seed=0, device="cuda")
+    step = AwpuPipeline(cfg, channels=256, seed=0, mesh=mesh, device="cuda")
+    outs, refs = [], []
+    for i, blk in enumerate(blocks):
+        step.state = step.state._replace(
+            swarm=_clone(ref.state.swarm), miso=_clone(ref.state.miso),
+            prev_max=ref.state.prev_max.clone())
+        step.generator.set_state(ref.generator.get_state())
+        if i == 0:
+            # The first block keeps K4's operands where ch > 1: a
+            # sub-step's probe beams and the dense map's (dir, ch) block.
+            with _keep_das_operands() as kept:
+                outs.append(_clone(step.process_block(blk)))
+            das = _hold_das_operands(kept)
+            if len(das) != (2 if ch > 1 else 0):
+                raise AssertionError(f"15b: K4 took {sorted(das)} rows on the "
+                                     f"first block at ch = {ch}")
+        else:
+            outs.append(_clone(step.process_block(blk)))
+        refs.append(_clone(ref.process_block(blk)))
+    worst = _hold_mesh(f"15b mesh {shape}", outs, refs, step.layout.dir.all_gather)
+    return dict(launches=launches, collectives=coll, ms=ms, host_ms=host_ms,
+                lock=lock, worst=worst, reduce_ms=reduce_ms, das=das)
+
+
+def _mesh_power() -> dict:
+    """15c on this rank: ``make_sharded_das_power`` over ch = 2 at 1024 mics
+    (16 arrays, shift_range 192, an 8x8 grid), against the one-rank dense
+    power, rtol 3e-4 / atol 1e-13 (tests/test_parallel.py:117-142), the
+    peak on the source; then the time-sharded beam over (dir, t) = (2, 1)
+    on the first array's 64 mics against the one-rank beam, rtol 2e-4 /
+    atol 1e-10."""
+    import torch
+
+    from beamforming_lk_tpu_torch import ArrayConfig, MimoConfig
+    from beamforming_lk_tpu_torch.io import ring as rg
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.models.mimo import make_mimo_grid
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+    from beamforming_lk_tpu_torch.ops import delay as dl
+    from beamforming_lk_tpu_torch.parallel import (
+        make_mesh, make_sharded_das_power, make_time_sharded_beam,
+        shard_weights, shard_window,
+    )
+    from beamforming_lk_tpu_torch.parallel import mesh as pm
+
+    acfg, mics, s = ArrayConfig(), 1024, 192
+    points = ant.multi_array_cluster(mics)
+    theta, phi = make_mimo_grid(MimoConfig(rows=8, columns=8))
+    delays = ant.steering_delays_np(points, theta, phi, acfg.samples_per_meter)
+    weights = torch.as_tensor(dl.das_weights_np(delays, s), device="cuda")
+    block = torch.as_tensor(plane_wave_block(points, [(0.3, 0.6, 3000.0)], 0, 256,
+                                             acfg, noise_std=0.02), device="cuda")
+    hist = rg.ring_push(rg.ring_init(mics, 1024, device="cuda"), block)
+    window = rg.ring_window(hist, 256, s, 2)
+    mesh = make_mesh((2, 1))
+    f = make_sharded_das_power(mesh)
+    local = (shard_window(window, mesh), shard_weights(weights, mesh))
+    got = f(*local)
+    want = dl.das_power(dl.das_beam(window, weights), divisor=256 * mics)
+    excess = _excess(got, want, (3e-4, 1e-13))
+    d = int(torch.argmax(got))
+    off = _angle(theta[d], phi[d], 0.3, 0.6)
+    if not (excess <= 1.0 and off < math.radians(15)):
+        raise AssertionError(f"15c: excess {excess:.3g}, peak {off:.3g} rad off")
+    ms = _cuda_ms(lambda: f(*local), 10)
+    one_ms = _cuda_ms(lambda: dl.das_power(dl.das_beam(window, weights),
+                                           divisor=256 * mics), 10)
+    # The time-sharded beam on the first array's 64 mics (span 64).  Gloo
+    # sends no CUDA tensor point to point (its TCP pair writes from the
+    # device pointer: "writev ... Bad address"), so on one card the t axis
+    # has size 1 (the halo is the history's tail) and the ranks split dir.
+    window, weights = window[:64, s - 64:], torch.as_tensor(dl.das_weights_np(
+        ant.steering_delays_np(points[:, :64], theta, phi, acfg.samples_per_meter),
+        64), device=window.device)
+    tmesh = make_mesh((2, 1), axis_names=(pm.DIR_AXIS, pm.TIME_AXIS))
+    weights = shard_weights(weights, tmesh)
+    beam = make_time_sharded_beam(tmesh)(window[:, 64:], window[:, :64], weights)
+    full = dl.das_beam(window, weights)
+    t_excess = _excess(beam, full, (2e-4, 1e-10))
+    if not t_excess <= 1.0:
+        raise AssertionError(f"15c time-sharded beam: excess {t_excess:.3g}")
+    return dict(excess=excess, off=off, ms=ms, one_ms=one_ms, t_excess=t_excess)
+
+
+def _mesh_estimators() -> dict:
+    """15d on this rank: the bin-sharded MVDR and MUSIC (subspace) over
+    dir = 2 at 64 mics on the realtime 64x64 grid (11 bins padded to 12),
+    6 blocks, against the single-device estimator on the card (9e's
+    bounds: MVDR 2e-3 relative, MUSIC by its invariants)."""
+    from beamforming_lk_tpu_torch.models import music as mu
+    from beamforming_lk_tpu_torch.models import mvdr as mv
+    from beamforming_lk_tpu_torch.models.mimo import make_mimo_grid
+    from beamforming_lk_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((1, 2))
+    lines = {}
+    for name, solver in (("mvdr", ""), ("music subspace", "subspace")):
+        one, cfg, array = _estimator(64, "cuda", solver)
+        theta, phi = make_mimo_grid(cfg.mimo)
+        if solver:
+            sharded, state = mu.make_sharded_music_step(
+                array.points, theta, phi, mesh, array_cfg=cfg.array,
+                solver=solver, device="cuda")
+        else:
+            sharded, state = mv.make_sharded_mvdr_step(
+                array.points, theta, phi, mesh, array_cfg=cfg.array,
+                device="cuda")
+        blocks = _plane_wave_blocks(array, cfg, 64, "cuda", ADAPTIVE_BLOCKS)
+        one_state = one.init()
+        for blk in blocks:
+            state, got = sharded(state, blk)
+            one_state, want = one(one_state, blk)
+        lines[name] = (f"{sharded.n_bins} bins a rank, "
+                       + _hold_estimates(f"15d {name}", got, want, bool(solver)))
+    return lines
+
+
+def mesh_rank_main(rank: int, tmp: str) -> None:
+    """One of 15b-15d's two ranks: both share the card through gloo (NCCL
+    refuses two ranks of one communicator on one GPU), named here; the
+    results go to ``tmp/rank{rank}.json`` for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from beamforming_lk_tpu_torch.parallel.multihost import initialize
+
+    initialize(f"file://{os.path.join(tmp, 'rendezvous')}", 2, rank, backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"device": torch.cuda.current_device()}
+    for shape in ((2, 1), (1, 2)):
+        out[f"{shape[0]}x{shape[1]}"] = _mesh_awpu(shape)
+    out["power"] = _mesh_power()
+    out["estimators"] = _mesh_estimators()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_mesh_two_ranks(tmp: str) -> dict:
+    """15b-15d: two ranks of this script on the one card (gloo on CUDA
+    tensors); a rank that fails fails the phase.  Returns the kernels'
+    launches of 15b's free runs, summed over the ranks."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-rank", str(r), tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed = [f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    if failed:
+        raise AssertionError("15b-15d: " + "\n".join(failed))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = dict.fromkeys(_wrappers(), 0)
+    for shape in ("2x1", "1x2"):
+        res = [rk[shape] for rk in ranks]
+        for rk in res:
+            for k, v in rk["launches"].items():
+                launches[k] += v
+        r0 = res[0]
+        per = {k: v / MESH_BLOCKS for k, v in r0["launches"].items() if v}
+        das = "; ".join(
+            f"{d} rows x {c} channels {compute} (last block {tail_rows} rows): "
+            f"max abs {err:.3g}, {rel:.3g} of the peak, that block {tail:.3g}"
+            for d, (c, compute, tail_rows, err, rel, tail) in sorted(
+                r0["das"].items(), key=lambda kv: int(kv[0])))
+        das = (f"K4 on the first block's own operands vs twin (tol 1e-5 of the "
+               f"peak), rank 0: {das}; " if das else "")
+        print(f"15b mesh (ch, dir) = ({shape[0]}, {shape[2]}), 2 ranks on one card "
+              f"(gloo), realtime, 256 mics, {MESH_BLOCKS} blocks: launches a block "
+              f"a rank {per}, all-reduces a block a rank "
+              f"{r0['collectives']['all_reduce'] / MESH_BLOCKS:.4g} "
+              f"({r0['reduce_ms']:.4f} ms each for a sub-step's [108, 254] "
+              f"partial beams, host clock, where ch > 1); "
+              f"{max(rk['ms'] for rk in res):.4f} ms/block device, "
+              f"{max(rk['host_ms'] for rk in res):.4f} host (slowest rank); "
+              f"{r0['lock']}; {das}lockstep vs one rank, worst excess over the sharded "
+              f"bounds " + ", ".join(f"{k} {v:.3g}" for k, v in r0["worst"].items()),
+              flush=True)
+    p0 = ranks[0]["power"]
+    print(f"15c make_sharded_das_power, ch = 2, 1024 mics, shift_range 192: "
+          f"excess over rtol 3e-4 {p0['excess']:.3g}, peak {math.degrees(p0['off']):.2f} "
+          f"deg off the source; {p0['ms']:.4f} ms sharded (a rank), "
+          f"{p0['one_ms']:.4f} ms one rank; time-sharded beam over (dir, t) = "
+          f"(2, 1) (gloo sends no CUDA tensor point to point) excess "
+          f"{p0['t_excess']:.3g}", flush=True)
+    for name, line in ranks[0]["estimators"].items():
+        print(f"15d bin-sharded {name}, dir = 2, 64 mics, {ADAPTIVE_BLOCKS} blocks "
+              f"vs one device: {line}", flush=True)
+    return launches
+
 def main() -> int:
     import tempfile
 
@@ -2320,6 +2836,9 @@ def main() -> int:
         launches["das_beam"] += n_k4
         launches["swarm_chain"] += run_cli_fusion(tmp)
         launches["swarm_chunk"] += run_cli_adaptive(tmp)
+        launches["monopulse_chain"] += run_mesh_one_rank()[0]
+        for name, n in run_mesh_two_ranks(tmp).items():
+            launches[name] += n
 
     def row(name, source, replaces, results, key):
         r = results[key]
@@ -2351,4 +2870,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

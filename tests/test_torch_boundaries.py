@@ -1,7 +1,7 @@
 """Boundaries of the port: it loads no JAX, dispatches its kernels on the
-device of their tensors, runs every configuration of the ported slices and
-raises NotImplementedError for every configuration outside them (a
-mesh)."""
+device of their tensors, runs every configuration of the ported slices (a
+world-size-1 CPU mesh included) and raises for a mesh that is not a
+``DeviceMesh``."""
 
 import dataclasses
 import inspect
@@ -41,6 +41,7 @@ SMALL = tcfg.realtime(tcfg.Config(
 _NO_JAX = """
 import os, sys, tempfile
 import numpy as np
+import beamforming_lk_tpu_torch.parallel.multihost
 from beamforming_lk_tpu_torch import Config, MimoConfig, realtime
 from beamforming_lk_tpu_torch.app import AwpuPipeline
 from beamforming_lk_tpu_torch.io import checkpoint
@@ -215,7 +216,7 @@ def _replace(cfg, part, **kw):
 
 
 _OUTSIDE = {
-    "mesh": dict(kwargs=dict(mesh=object())),
+    "mesh": dict(kwargs=dict(mesh=object()), raises=TypeError),
 }
 
 # Configurations of the default-profile slice (the unfused tracker and
@@ -233,25 +234,45 @@ _INSIDE = {
     "gain_mask": dict(kwargs=dict(channel_mask=np.full(64, 0.5, np.float32))),
     "non_lattice": dict(kwargs=dict(points=ant.create_antenna_grid() * np.array(
         [[1.0], [1.0], [0.0]], np.float32) + np.linspace(0, 0.01, 64)[None])),
+    "mesh": dict(mesh=True),
 }
+
+
+@pytest.fixture
+def world1_mesh(tmp_path):
+    """A (ch, dir) = (1, 1) CPU mesh of a one-process gloo group, torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from beamforming_lk_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("case", sorted(_OUTSIDE))
 def test_outside_the_slice_raises(case):
     spec = _OUTSIDE[case]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(spec["raises"]):
         AwpuPipeline(spec.get("cfg", SMALL), device="cpu",
                      **spec.get("kwargs", {}))
 
 
 @pytest.mark.parametrize("case", sorted(_INSIDE))
-def test_inside_the_slice_runs_two_blocks(case):
+def test_inside_the_slice_runs_two_blocks(case, request):
     """Each configuration builds on the CPU and runs 2 blocks of a plane
     wave: finite heatmap powers (the estimator's in the adaptive modes,
     where the DAS heatmap is off), a beam of one block, targets of every
-    tracker (zero beam or zero targets where MISO or the tracker is off)."""
+    tracker (zero beam or zero targets where MISO or the tracker is off).
+    The mesh case runs the sharded step on a world-size-1 mesh."""
     spec = _INSIDE[case]
-    kwargs = spec.get("kwargs", {})
+    kwargs = dict(spec.get("kwargs", {}))
+    if spec.get("mesh"):
+        kwargs["mesh"] = request.getfixturevalue("world1_mesh")
     pipe = AwpuPipeline(spec.get("cfg", SMALL), device="cpu", **kwargs)
     for i in range(2):
         out = pipe.process_block(plane_wave_block(

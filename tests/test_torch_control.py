@@ -2,7 +2,8 @@
 a 3D best track, frame rendering, MISO WAV/MP3/playback, recording and
 click-to-steer (the JAX package's control-unit cases, on ``device="cpu"``),
 the adaptive heatmaps, and what the port's unit adds: its device, its
-stage timer, its not-ported mesh."""
+stage timer, its refusal of a mesh that is not a ``DeviceMesh`` (a real
+mesh runs in ``tests/test_torch_multihost.py``)."""
 
 import os
 
@@ -322,8 +323,9 @@ def test_control_unit_camera_underlay():
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_not_ported_modes_raise(kw):
-    """A mesh raises the pipeline's not-ported error."""
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """A mesh that is not a ``DeviceMesh`` raises the pipeline's
+    ``TypeError`` (a real mesh runs: ``tests/test_torch_multihost.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _unit(**kw)
 
 

@@ -226,3 +226,120 @@ def test_mimo_grid_and_render():
                                     jnp.float32(1.5), use_db=use_db)
         assert np.abs(gi.numpy().astype(int) - np.asarray(wi).astype(int)).max() <= 1
         _close(gp, wp)
+
+
+# The JAX package's last public helpers.
+
+def _dirs(n=40):
+    return (RNG.uniform(0.0, np.pi / 2, n).astype(np.float32),
+            RNG.uniform(-np.pi, 2 * np.pi, n).astype(np.float32))
+
+
+def test_geometry_helpers():
+    """smallest_angle, cartesian_to_spherical, horizontal_to_spherical and
+    spherical_chord_distance against the JAX package's."""
+    (t1, p1), (t2, p2) = _dirs(), _dirs()
+    _close(tgeo.smallest_angle(torch.as_tensor(p1), torch.as_tensor(p2)),
+           jgeo.smallest_angle(p1, p2))
+    xyz = RNG.normal(size=(40, 3)).astype(np.float32)
+    for got, want in zip(tgeo.cartesian_to_spherical(torch.as_tensor(xyz)),
+                         jgeo.cartesian_to_spherical(jnp.asarray(xyz))):
+        _close(got, want, atol=2e-6)
+    for got, want in zip(tgeo.horizontal_to_spherical(torch.as_tensor(p1),
+                                                      torch.as_tensor(t1)),
+                         jgeo.horizontal_to_spherical(p1, t1)):
+        _close(got, want, atol=2e-6)
+    _close(tgeo.spherical_chord_distance(*map(torch.as_tensor, (t1, p1, t2, p2))),
+           jgeo.spherical_chord_distance(t1, p1, t2, p2), atol=2e-6)
+    _close(tgeo.spherical_to_cartesian(torch.as_tensor(t1), torch.as_tensor(p1), 2.5),
+           jgeo.spherical_to_cartesian(t1, p1, 2.5))
+
+
+def test_quadrant_probes_reference():
+    """The reference's mirrored probe construction, port vs JAX."""
+    theta, phi = _dirs(16)
+    for got, want in zip(
+            tgeo.quadrant_probes_reference(torch.as_tensor(theta),
+                                           torch.as_tensor(phi), 0.1),
+            jgeo.quadrant_probes_reference(theta, phi, 0.1)):
+        _close(got, want, atol=5e-6)
+
+
+def test_antenna_helpers():
+    """sector_masks, steer_points and the horizontal / Cartesian steering
+    delays against the JAX package's."""
+    np.testing.assert_array_equal(tant.sector_masks(), jant.sector_masks())
+    pts = tant.multi_array_cluster(256)
+    theta, phi = _dirs(12)
+    _close(tant.steer_points(pts, torch.as_tensor(theta), torch.as_tensor(phi)),
+           jant.steer_points(pts, theta, phi))
+    _close(tant.steering_delays_horizontal(pts, phi, theta, SPM),
+           jant.steering_delays_horizontal(pts, phi, theta, SPM), atol=2e-4)
+    xyz = RNG.normal(size=(12, 3)).astype(np.float32)
+    xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True)
+    _close(tant.steering_delays_cartesian(pts, xyz, SPM),
+           jant.steering_delays_cartesian(pts, xyz, SPM), atol=2e-4)
+
+
+def test_dome_lookup_is_the_jax_packages():
+    """The Fibonacci dome, its degree lookup table and its worst error,
+    bitwise (numpy copies)."""
+    dome = tant.generate_unit_dome(500)
+    np.testing.assert_array_equal(dome, jant.generate_unit_dome(500))
+    table = tant.generate_dome_lookup(dome)
+    np.testing.assert_array_equal(table, jant.generate_dome_lookup(dome))
+    assert tant.dome_lookup_max_error(dome, table) == jant.dome_lookup_max_error(dome, table)
+    assert tant.dome_lookup_max_error(dome, table) < 0.2
+
+
+@pytest.mark.parametrize("interp", ["linear", "fir"])
+def test_dense_das_beam_and_power_from_delays(interp):
+    """The dense-stencil ``das_beam`` and ``das_power_from_delays`` (with
+    and without a channel mask) against the JAX package's, within 1e-5 of
+    the largest value."""
+    pts = tant.create_antenna_grid()
+    theta, phi = _dirs(24)
+    delays = tant.steering_delays_np(pts, theta, phi, SPM)
+    window = RNG.normal(size=(64, 256 + 64)).astype(np.float32)
+    bank = None if interp == "linear" else jdl.fractional_delay_fir_bank(101, 8)
+    w = jdl.das_weights_np(delays, 64, interp, bank)
+    want = np.asarray(jdl.das_beam(jnp.asarray(window), jnp.asarray(w)))
+    got = tdl.das_beam(torch.as_tensor(window), torch.as_tensor(w)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    mask = np.ones(64, np.float32)
+    mask[5] = 0.0
+    for m in (None, mask):
+        want = np.asarray(jdl.das_power_from_delays(
+            jnp.asarray(window), jnp.asarray(delays), shift_range=64, mode=interp,
+            fir_bank=bank, channel_mask=m))
+        got = tdl.das_power_from_delays(
+            torch.as_tensor(window), torch.as_tensor(delays), shift_range=64,
+            mode=interp, fir_bank=bank, channel_mask=m).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * want.max())
+
+
+def test_step_builders_match_the_jax_packages():
+    """``make_swarm_step`` and ``make_miso_step`` build the port's step
+    modules on the CPU with the JAX package's probe span; one MISO step
+    from boresight agrees with the JAX one within 1e-5 rad."""
+    from beamforming_lk_tpu.models import miso as jms
+    from beamforming_lk_tpu_torch.models import miso as tms
+    from beamforming_lk_tpu_torch.models import tracker as ttk
+
+    cfg = tcfg.Config()
+    pts = tant.create_antenna_grid()
+    swarm = ttk.make_swarm_step(pts, cfg.tracker, cfg.dsp, cfg.array, device="cpu")
+    miso = tms.make_miso_step(pts, cfg.tracker, cfg.dsp, cfg.array, device="cpu")
+    assert isinstance(swarm, ttk.SwarmStep) and isinstance(miso, tms.MisoStep)
+    assert swarm.span == miso.probes.span == jdl.probe_span(
+        pts, cfg.array.samples_per_meter, 2, cfg.dsp.shift_range)
+    hist = trg.ring_init(64, cfg.dsp.history)
+    block = tsyn.plane_wave_block(pts, [(0.3, 1.0, 5000.0)], 0, 256, noise_std=0.02)
+    window = trg.ring_window(trg.ring_push(hist, torch.as_tensor(block)),
+                             256, cfg.dsp.shift_range, 2)
+    state, beam = miso(tms.miso_init(device="cpu"), window)
+    jc = jcfg.Config()
+    jstep = jms.make_miso_step(pts, jc.tracker, jc.dsp, jc.array)
+    jstate, jbeam = jstep(jms.miso_init(), jnp.asarray(window.numpy()))
+    _close(state.particle.theta, jstate.particle.theta, atol=1e-5)
+    assert np.abs(beam.numpy() - np.asarray(jbeam)).max() <= 1e-4 * np.abs(jbeam).max()
