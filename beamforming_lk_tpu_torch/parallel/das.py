@@ -9,7 +9,8 @@
 - **direction sharding** (``dir``): the grid splits with no communication;
 - **time sharding** (``t``): a block's time axis splits into contiguous
   chunks, and each chunk takes the ``S`` samples before it from its left
-  neighbour (``batch_isend_irecv``), the first from the history's tail.
+  neighbour (``batch_isend_irecv``; through host memory on gloo), the
+  first from the history's tail.
 
 Each function takes this rank's shards, as :func:`shard_window` and
 :func:`shard_weights` cut them from global tensors, and returns this
@@ -74,7 +75,12 @@ def halo_exchange_time(block, history_tail, halo: int, mesh: DeviceMesh,
     behind the ``halo`` samples before it, which its left neighbour on
     ``axis_name`` sends (its last ``halo`` samples); the first rank takes
     ``history_tail`` [C, halo], the samples before the global block.
-    Needs ``T_loc >= halo``."""
+    Needs ``T_loc >= halo``.
+
+    On a gloo group the halo goes through host memory, whatever the
+    tensors' device: gloo sends no CUDA tensor point to point (its TCP
+    pair writes from the device pointer), so a CPU copy is sent, received
+    and then moved to ``block``'s device (no copy for CPU tensors)."""
     if block.shape[-1] < halo:
         raise ValueError(f"a time chunk of {block.shape[-1]} samples is "
                          f"shorter than the halo of {halo}")
@@ -82,16 +88,21 @@ def halo_exchange_time(block, history_tail, halo: int, mesh: DeviceMesh,
     left = history_tail
     if axis.size > 1:
         ranks = dist.get_process_group_ranks(axis.group)
+        via = ("cpu" if dist.get_backend(axis.group) == dist.Backend.GLOO
+               else block.device)
         ops = []
         if axis.index + 1 < axis.size:
-            ops.append(dist.P2POp(dist.isend, block[..., -halo:].contiguous(),
+            ops.append(dist.P2POp(dist.isend,
+                                  block[..., -halo:].to(via).contiguous(),
                                   ranks[axis.index + 1], group=axis.group))
         if axis.index > 0:
-            left = torch.empty_like(history_tail)
+            left = torch.empty(history_tail.shape, dtype=history_tail.dtype,
+                               device=via)
             ops.append(dist.P2POp(dist.irecv, left, ranks[axis.index - 1],
                                   group=axis.group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+        left = left.to(block.device)
     return torch.cat([left, block], dim=-1)
 
 

@@ -42,7 +42,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    run's;
 9d. two 256-mic arrays at x = -1, +1 m fused into a 3D track over 96
    blocks (``TargetFusion`` on the card), against the source and a numpy
-   triangulation of the published rays, with the fusion step's time;
+   triangulation of the published rays, with the fusion step's time; then
+   the fusion's ray log replayed by ``tools.track_replay`` on the card and
+   on the CPU, results equal, with the replay's time on each;
 9e. the adaptive heatmaps on the realtime profile's 64 x 64 grid: (a) each
    estimator on the card against the CPU over 6 blocks (MVDR, MUSIC
    subspace and eigh at 64 mics, MVDR at 256); (b) MVDR, MVDR with its
@@ -123,8 +125,10 @@ Phases (any failed check raises, so the exit code is non-zero):
     channels) held against its twin on the same tensors at 1e-5 of the
     peak;
 15c. ``make_sharded_das_power`` over ch = 2 at 1024 mics (shift_range 192)
-    against one rank, the peak on the source; the time-sharded beam (t of
-    size 1: gloo sends no CUDA tensor point to point);
+    against one rank, the peak on the source; the time-sharded beam over
+    (dir, t) = (1, 2), the second rank's halo from the first through host
+    memory (gloo sends no CUDA tensor point to point), against one rank,
+    with the ms of a call and of one halo exchange;
 15d. ``make_sharded_mvdr_step`` and ``make_sharded_music_step`` (subspace)
     over dir = 2 at 64 mics against the single-device estimators on the
     card (MVDR 2e-3 relative, MUSIC by its invariants).  A rank that fails
@@ -1110,18 +1114,19 @@ def _triangulate_np(o1, d1, o2, d2, cfg):
     return mid
 
 
-def fuse_two_arrays(device, n_blocks: int = N_BLOCKS):
+def fuse_two_arrays(device, n_blocks: int = N_BLOCKS, log_path=None):
     """Two realtime 256-mic pipelines at x = -1 and +1 m, each hearing a
     5 kHz plane wave from the direction of a source at FUSION_TARGET, in the
     published convention: the wave's (theta, phi) are those whose
     ``spherical_to_cartesian`` ray points at the source.  (The steering
     row's y is negated, u = (sin t cos p, -sin t sin p, cos t), so a wave
     made from world geometry would fuse at the source's mirror image in
-    y.)  ``TargetFusion`` fuses their targets after every block.  Returns
-    (the best track, its distance from the source [m], the worst distance
-    of a best track hit in a step from the float64 numpy triangulation of
-    that step's published rays, the steps so checked, the fusion step's
-    median host ms)."""
+    y.)  ``TargetFusion`` fuses their targets after every block, and writes
+    its ray log to ``log_path`` where one is given.  Returns (the best
+    track, its distance from the source [m], the worst distance of a best
+    track hit in a step from the float64 numpy triangulation of that step's
+    published rays, the steps so checked, the fusion step's median host
+    ms)."""
     import torch
 
     from beamforming_lk_tpu_torch import Config, realtime
@@ -1130,7 +1135,7 @@ def fuse_two_arrays(device, n_blocks: int = N_BLOCKS):
 
     cfg = realtime(Config())
     target = np.asarray(FUSION_TARGET)
-    fusion = TargetFusion(cfg.triangulation, device=device)
+    fusion = TargetFusion(cfg.triangulation, log_path=log_path, device=device)
     pipes, streams = [], []
     for seed, pos in enumerate(FUSION_ARRAYS):
         d = target - np.asarray(pos)
@@ -1162,6 +1167,7 @@ def fuse_two_arrays(device, n_blocks: int = N_BLOCKS):
             worst = max(worst, min(float(np.linalg.norm(best.position - p))
                                    for p in pts))
             checked += 1
+    fusion.close()
     if best is None or best.hits < 2:
         raise AssertionError(f"fusion found no track with 2 hits: {best}")
     return (best, float(np.linalg.norm(best.position - target)), worst, checked,
@@ -1172,11 +1178,16 @@ def run_fusion(device):
     """Phase d on the card: :func:`fuse_two_arrays` for 96 blocks, K1 once
     per block per array; the best track within FUSION_BOUND_M of the
     source; every best-track hit within 1e-5 m of the numpy triangulation
-    of the same published rays.  Returns (K1 launches, median fusion step
-    ms)."""
+    of the same published rays; then :func:`run_track_replay` of the
+    phase's ray log.  Returns (K1 launches, median fusion step ms)."""
+    import tempfile
+
     _reset_counts()
-    best, err, worst, checked, step_ms = fuse_two_arrays(device)
-    counts = _counts(swarm_chain=2 * N_BLOCKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "Targets.txt")
+        best, err, worst, checked, step_ms = fuse_two_arrays(device, log_path=log)
+        counts = _counts(swarm_chain=2 * N_BLOCKS)
+        replayed = run_track_replay(log, device)
     if not err <= FUSION_BOUND_M:
         raise AssertionError(f"fused track {err:.4g} m from the source > "
                              f"{FUSION_BOUND_M} m")
@@ -1189,7 +1200,50 @@ def run_fusion(device):
           f"{FUSION_BOUND_M} m); vs numpy triangulation of the published rays "
           f"{worst:.3g} m over {checked} steps (tol 1e-5 m); fusion step "
           f"{step_ms:.4f} ms median (host clock, 2 target fetches)", flush=True)
+    print(replayed, flush=True)
     return counts["swarm_chain"], step_ms
+
+
+def run_track_replay(log: str, device) -> str:
+    """Phase d's ray log through the port's ``tools.track_replay`` on
+    ``device`` against the same tool on the CPU: valid flags equal, every
+    intersection and track position within 1e-5 m, the tracks' hits and
+    flags equal, the same best track, the same printed summary.  Times the
+    whole replay on each (host clock, median of 5: the parse, one batched
+    triangulation, one fetch, the track store).  Returns the phase's line."""
+    import io
+
+    from beamforming_lk_tpu_torch.tools import track_replay as tr
+
+    def replay(dev):
+        runs, ms = [], []
+        for _ in range(5):
+            printed = io.StringIO()
+            h0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                runs.append(tr.replay(log, device=dev))
+            ms.append((time.perf_counter() - h0) * 1e3)
+        return runs[-1], printed.getvalue(), float(np.median(ms))
+
+    (card, card_out, card_ms), (cpu, cpu_out, cpu_ms) = replay(device), replay("cpu")
+    tracks = list(zip(card.store.tracks, cpu.store.tracks))
+    pos = max([float(np.abs(card.points - cpu.points).max())]
+              + [float(np.abs(a.position - b.position).max()) for a, b in tracks])
+    best = [next((i for i, t in enumerate(r.store.tracks) if t is r.store.best), None)
+            for r in (card, cpu)]
+    if not (card.valid.any() and np.array_equal(card.valid, cpu.valid)
+            and len(card.store.tracks) == len(cpu.store.tracks)
+            and all((a.hits, a.valid) == (b.hits, b.valid) for a, b in tracks)
+            and pos <= 1e-5 and best[0] == best[1] is not None
+            and card_out == cpu_out):
+        raise AssertionError(f"track replay {device} vs CPU: position {pos:.3g} m, "
+                             f"best {best}\n{card_out}\n{cpu_out}")
+    lines = card_out.splitlines()
+    return (f"9d track replay of that ray log (tools.track_replay): {lines[0]}; "
+            f"{lines[1]}; {lines[-1]}; {device} vs CPU: valid flags, tracks' hits "
+            f"and the best track equal, worst position {pos:.3g} m (tol 1e-5 m); "
+            f"{card_ms:.4f} ms on the card, {cpu_ms:.4f} ms on the CPU (the whole "
+            f"replay, host clock, median of 5)")
 
 
 # Phase 9e: the adaptive heatmaps.  The pipelines' estimator settings, by
@@ -2567,9 +2621,14 @@ def _mesh_power() -> dict:
     """15c on this rank: ``make_sharded_das_power`` over ch = 2 at 1024 mics
     (16 arrays, shift_range 192, an 8x8 grid), against the one-rank dense
     power, rtol 3e-4 / atol 1e-13 (tests/test_parallel.py:117-142), the
-    peak on the source; then the time-sharded beam over (dir, t) = (2, 1)
-    on the first array's 64 mics against the one-rank beam, rtol 2e-4 /
-    atol 1e-10."""
+    peak on the source; then the time-sharded beam over (dir, t) = (1, 2)
+    on the first array's 64 mics: each rank beams its half of the block, the
+    second behind the first's last 64 samples (the halo, which gloo stages
+    through host memory).  Held against the one-rank beam of the rank's own
+    span of the window at rtol 2e-4 / atol 1e-10, and against the one-rank
+    beam of the whole block within 1e-5 of its peak (a product of another
+    width sums in another order); timed a call, and one halo exchange
+    alone (host clock, both ranks in step)."""
     import torch
 
     from beamforming_lk_tpu_torch import ArrayConfig, MimoConfig
@@ -2579,8 +2638,8 @@ def _mesh_power() -> dict:
     from beamforming_lk_tpu_torch.ops import antenna as ant
     from beamforming_lk_tpu_torch.ops import delay as dl
     from beamforming_lk_tpu_torch.parallel import (
-        make_mesh, make_sharded_das_power, make_time_sharded_beam,
-        shard_weights, shard_window,
+        halo_exchange_time, make_mesh, make_sharded_das_power,
+        make_time_sharded_beam, shard_weights, shard_window,
     )
     from beamforming_lk_tpu_torch.parallel import mesh as pm
 
@@ -2606,21 +2665,41 @@ def _mesh_power() -> dict:
     ms = _cuda_ms(lambda: f(*local), 10)
     one_ms = _cuda_ms(lambda: dl.das_power(dl.das_beam(window, weights),
                                            divisor=256 * mics), 10)
-    # The time-sharded beam on the first array's 64 mics (span 64).  Gloo
-    # sends no CUDA tensor point to point (its TCP pair writes from the
-    # device pointer: "writev ... Bad address"), so on one card the t axis
-    # has size 1 (the halo is the history's tail) and the ranks split dir.
+    # The time-sharded beam on the first array's 64 mics (span 64).
     window, weights = window[:64, s - 64:], torch.as_tensor(dl.das_weights_np(
         ant.steering_delays_np(points[:, :64], theta, phi, acfg.samples_per_meter),
         64), device=window.device)
-    tmesh = make_mesh((2, 1), axis_names=(pm.DIR_AXIS, pm.TIME_AXIS))
+    tmesh = make_mesh((1, 2), axis_names=(pm.DIR_AXIS, pm.TIME_AXIS))
+    part = pm.Axis(tmesh, pm.TIME_AXIS).part(256)
     weights = shard_weights(weights, tmesh)
-    beam = make_time_sharded_beam(tmesh)(window[:, 64:], window[:, :64], weights)
-    full = dl.das_beam(window, weights)
-    t_excess = _excess(beam, full, (2e-4, 1e-10))
-    if not t_excess <= 1.0:
-        raise AssertionError(f"15c time-sharded beam: excess {t_excess:.3g}")
-    return dict(excess=excess, off=off, ms=ms, one_ms=one_ms, t_excess=t_excess)
+    chunk, tail = window[:, 64:][:, part].contiguous(), window[:, :64]
+    f = make_time_sharded_beam(tmesh)
+    beam = f(chunk, tail, weights)
+    own = dl.das_beam(window[:, part.start:part.stop + 64], weights)
+    whole = dl.das_beam(window, weights)
+    t_excess = _excess(beam, own, (2e-4, 1e-10))
+    t_rel = float((beam - whole[:, part]).abs().max() / whole.abs().max())
+    t_whole = _excess(beam, whole[:, part], (2e-4, 1e-10))
+    if not (t_excess <= 1.0 and t_rel <= 1e-5):
+        raise AssertionError(f"15c time-sharded beam: excess {t_excess:.3g} over "
+                             f"the rank's own span, {t_rel:.3g} of the peak off "
+                             f"the whole block's beam")
+
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - h0) * 1e3 / n
+
+    t_ms = host_ms(lambda: f(chunk, tail, weights))
+    halo_ms = host_ms(lambda: halo_exchange_time(chunk, tail, 64, tmesh))
+    one_t_ms = host_ms(lambda: dl.das_beam(window, weights))
+    return dict(excess=excess, off=off, ms=ms, one_ms=one_ms, t_excess=t_excess,
+                t_rel=t_rel, t_whole=t_whole, t_ms=t_ms, halo_ms=halo_ms,
+                one_t_ms=one_t_ms, t_index=tmesh.get_local_rank(pm.TIME_AXIS))
 
 
 def _mesh_estimators() -> dict:
@@ -2731,12 +2810,23 @@ def run_mesh_two_ranks(tmp: str) -> dict:
               f"bounds " + ", ".join(f"{k} {v:.3g}" for k, v in r0["worst"].items()),
               flush=True)
     p0 = ranks[0]["power"]
+    pw = [rk["power"] for rk in ranks]
+    if sorted(p["t_index"] for p in pw) != [0, 1]:
+        raise AssertionError(f"15c: t indices {[p['t_index'] for p in pw]}")
     print(f"15c make_sharded_das_power, ch = 2, 1024 mics, shift_range 192: "
           f"excess over rtol 3e-4 {p0['excess']:.3g}, peak {math.degrees(p0['off']):.2f} "
           f"deg off the source; {p0['ms']:.4f} ms sharded (a rank), "
-          f"{p0['one_ms']:.4f} ms one rank; time-sharded beam over (dir, t) = "
-          f"(2, 1) (gloo sends no CUDA tensor point to point) excess "
-          f"{p0['t_excess']:.3g}", flush=True)
+          f"{p0['one_ms']:.4f} ms one rank", flush=True)
+    print(f"15c time-sharded beam, (dir, t) = (1, 2), 64 mics, span 64, a 256-sample "
+          f"block in two chunks of 128 (the halo through host memory on gloo): "
+          f"vs the one-rank beam of each rank's span, worst excess over rtol 2e-4 / "
+          f"atol 1e-10 {max(p['t_excess'] for p in pw):.3g}; vs the whole block's "
+          f"one-rank beam {max(p['t_rel'] for p in pw):.3g} of its peak (tol 1e-5; "
+          f"excess over rtol 2e-4 / atol 1e-10 {max(p['t_whole'] for p in pw):.3g}, "
+          f"not gated); {max(p['t_ms'] for p in pw):.4f} ms a call sharded, "
+          f"{max(p['halo_ms'] for p in pw):.4f} ms one halo exchange alone (slowest "
+          f"rank, host clock, 20 calls), {p0['one_t_ms']:.4f} ms the whole block's "
+          f"beam on one rank; {_card_line()}", flush=True)
     for name, line in ranks[0]["estimators"].items():
         print(f"15d bin-sharded {name}, dir = 2, 64 mics, {ADAPTIVE_BLOCKS} blocks "
               f"vs one device: {line}", flush=True)

@@ -31,6 +31,7 @@ from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_das as cd  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
 from beamforming_lk_tpu_torch.ops import fft_das as fd  # noqa: E402
+from beamforming_lk_tpu_torch.tools import track_replay  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = tcfg.realtime(tcfg.Config(
@@ -57,13 +58,19 @@ with tempfile.TemporaryDirectory() as d:
     pipes[0].save(os.path.join(d, "s.npz"))
     pipes[1].restore(os.path.join(d, "s.npz"))
     checkpoint.load_state(os.path.join(d, "s.npz"), pipes[1].state)
-fuse = fusion.TargetFusion(cfg.triangulation, device="cpu")
+rays = tempfile.TemporaryDirectory()
+fuse = fusion.TargetFusion(cfg.triangulation, log_path=os.path.join(rays.name, "t.txt"),
+                           device="cpu")
 for p, x in zip(pipes, (-1.0, 1.0)):
     fuse.add_array(p, [x, 0.0, 0.0])
 for i in range(2):
     for p in pipes:
         out = p.process_block(blocks[i])
     fuse.step(i * 0.005)
+fuse.close()
+from beamforming_lk_tpu_torch.tools import track_replay
+track_replay.replay(os.path.join(rays.name, "t.txt"), device="cpu")
+rays.cleanup()
 kf = kalman.KalmanFilter3D(0.005, device="cpu")
 kf.update(kf.init(), [0.4, 0.6, 6.0])
 assert np.isfinite(out.powers.numpy()).all() and out.miso_beam.shape == (256,)
@@ -108,6 +115,15 @@ def _restore_jax_checkpoint(**kw):
         return convert.awpu_state_from_jax_checkpoint(path, template, **kw)
 
 
+def _replay_ray_log(**kw):
+    """``tools.track_replay.replay`` of a one-line ray log."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "Targets.txt")
+        with open(path, "w") as f:
+            f.write("-1 0 0,0.1 0 1;1 0 0,-0.1 0 1;0.0\n")
+        return track_replay.replay(path, **kw)
+
+
 # Each entry point that places work on a device: (function, a call of it).
 _ENTRY_POINTS = {
     "AwpuPipeline": (awpu.AwpuPipeline, lambda **kw: awpu.AwpuPipeline(SMALL, **kw)),
@@ -127,6 +143,7 @@ _ENTRY_POINTS = {
     "make_music_step": (mu.make_music_step, lambda **kw: mu.make_music_step(
         ant.create_antenna_grid(), *make_mimo_grid(SMALL.mimo), **kw)),
     "music_init": (mu.music_init, lambda **kw: mu.music_init(11, 64, **kw)),
+    "track_replay": (track_replay.replay, _replay_ray_log),
 }
 
 

@@ -101,18 +101,20 @@ def _rank_cases():
                         coordinate=np.array(m.get_coordinate()))
         return case
 
-    def time_beam(inp):
-        m = make_mesh((2, 2), axis_names=(pm.DIR_AXIS, pm.TIME_AXIS),
-                      device_type="cpu")
-        s = inp["weights"].shape[-1]
-        window = t(inp["window"])
-        block = window[:, s:]
-        f = make_time_sharded_beam(m)
-        part = pm.Axis(m, pm.TIME_AXIS).part(block.shape[-1])
-        weights = shard_weights(t(inp["weights"]), m)
-        return dict(beam=f(block[:, part].contiguous(), window[:, :s], weights),
-                    dense=dl.das_beam(window, weights)[:, part],
-                    coordinate=np.array(m.get_coordinate()))
+    def time_beam(shape, axis_names=(pm.DIR_AXIS, pm.TIME_AXIS)):
+        def case(inp):
+            m = make_mesh(shape, axis_names=axis_names, device_type="cpu")
+            s = inp["weights"].shape[-1]
+            window = t(inp["window"])
+            block = window[:, s:]
+            f = make_time_sharded_beam(m)
+            part = pm.Axis(m, pm.TIME_AXIS).part(block.shape[-1])
+            weights = shard_weights(t(inp["weights"]), m)
+            return dict(beam=f(block[:, part].contiguous(), window[:, :s], weights),
+                        dense=dl.das_beam(window, weights)[:, part],
+                        own=dl.das_beam(window[:, part.start:part.stop + s], weights),
+                        coordinate=np.array(m.get_coordinate()))
+        return case
 
     def streaming(inp):
         m = make_mesh((2, 2), device_type="cpu")
@@ -198,7 +200,10 @@ def _rank_cases():
         "factoring": factoring,
         "ch_dir_power": power((2, 2)),
         "dir_power": power((1, 4)),
-        "time_beam": time_beam,
+        "time_beam": time_beam((2, 2)),
+        # (dir, t) = (1, 2) on each pair of ranks: two replicas of the
+        # shape chip_smoke.py's phase 15c runs on two ranks of one card.
+        "time_beam_1x2": time_beam((2, 1, 2), ("replica", pm.DIR_AXIS, pm.TIME_AXIS)),
         "streaming": streaming,
         "many_array": many_array,
         "fused": awpu("fused", 2),
@@ -400,6 +405,10 @@ def _jax_outputs(inputs):
     mesh = jpm.make_mesh((2, 2), axis_names=(jpm.DIR_AXIS, jpm.TIME_AXIS), devices=devs)
     ref["time_beam"] = np.asarray(make_time_sharded_beam(mesh)(
         window[:, 64:], window[:, :64], weights))
+    mesh = jpm.make_mesh((1, 2), axis_names=(jpm.DIR_AXIS, jpm.TIME_AXIS),
+                         devices=devs[:2])
+    ref["time_beam_1x2"] = np.asarray(make_time_sharded_beam(mesh)(
+        window[:, 64:], window[:, :64], weights))
     mesh = jpm.make_mesh((2, 2), devices=devs)
     step = make_sharded_mimo_step(mesh, block_size=256, shift_range=64, taps=2)
     hist = jax.device_put(jnp.zeros((64, 1024), jnp.float32),
@@ -507,6 +516,29 @@ def test_time_sharded_beam_matches_jax(run):
                                rtol=2e-4, atol=1e-10)
     want = run[1]["time_beam"]
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_time_sharded_beam_at_the_cards_shape_matches_jax(run):
+    """(dir, t) = (1, 2), the shape of chip_smoke.py's phase 15c: every
+    direction on both ranks, the second rank's halo from the first, on each
+    of two pairs of ranks.  The (2, 2) case's bounds: rtol 2e-4 / atol
+    1e-10 against the one-rank beam of the rank's own span of the window
+    (the same product, so the halo's samples are the window's), and within
+    1e-5 of the peak against the JAX package's beam on two of its virtual
+    devices and against the one-rank beam of the whole block (products of
+    another width, which sum 4096 terms in another order: 16 of 65 536
+    entries near zero differ by 3.7e-9, past atol 1e-10)."""
+    outs = _case(run[2], "time_beam_1x2")
+    want = run[1]["time_beam_1x2"]
+    peak = np.abs(want).max()
+    for replica in (0, 1):
+        pair = [o for o in outs if o["coordinate"][0] == replica]
+        got = _by_coordinate(pair, "beam", (1, 2))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, _by_coordinate(pair, "own", (1, 2)),
+                                   rtol=2e-4, atol=1e-10)
+        for ref in (want, _by_coordinate(pair, "dense", (1, 2))):
+            assert np.abs(got - ref).max() <= 1e-5 * peak
 
 
 def test_sharded_streaming_step_matches_jax(run):
