@@ -113,9 +113,10 @@ class AwpuStep(nn.Module):
     replays in chunks."""
 
     def __init__(self, points, cfg, channel_mask=None, enable_mimo=True,
-                 enable_tracker=True, enable_miso=True, device=None,
+                 enable_tracker=True, enable_miso=True, device="cuda",
                  layout: Optional[Layout] = None):
         super().__init__()
+        device = resolve_device(device)
         dsp, arr, tc = cfg.dsp, cfg.array, cfg.tracker
         self.cfg = cfg
         self.layout = layout

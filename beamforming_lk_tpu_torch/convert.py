@@ -2,7 +2,8 @@
 
 Every function takes the JAX objects' arrays as numpy (``np.asarray`` of
 each leaf, which needs no JAX import here), or a file the JAX package
-wrote, and returns the port's tensors.
+wrote, and returns the port's tensors on ``device``: the card unless it
+names the CPU.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beamforming_lk_tpu_torch.app.awpu import AwpuState, shard_state
+from beamforming_lk_tpu_torch.app.awpu import AwpuState, _placement, shard_state
 from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.io.checkpoint import load_state
 from beamforming_lk_tpu_torch.models.mimo import MimoModel
@@ -19,7 +20,6 @@ from beamforming_lk_tpu_torch.models.music import MusicState
 from beamforming_lk_tpu_torch.models.mvdr import MvdrState
 from beamforming_lk_tpu_torch.models.tracker import Particles, SwarmState
 from beamforming_lk_tpu_torch.ops.fft_das import FftHeatmapModel
-from beamforming_lk_tpu_torch.parallel.mesh import Layout
 
 
 def _t(a, device, dtype=None):
@@ -31,9 +31,10 @@ def _particles(p, device) -> Particles:
                        for f in Particles._fields))
 
 
-def swarm_state_from_jax(sw, device=None) -> SwarmState:
+def swarm_state_from_jax(sw, device="cuda") -> SwarmState:
     """A JAX ``SwarmState`` whose leaves are numpy arrays (its PRNG key is
     not read) -> the port's ``SwarmState``; the counter becomes a host int."""
+    device = resolve_device(device)
     return SwarmState(
         seekers=_particles(sw.seekers, device),
         trackers=_particles(sw.trackers, device),
@@ -48,18 +49,21 @@ def swarm_state_from_jax(sw, device=None) -> SwarmState:
     )
 
 
-def miso_state_from_jax(ms, device=None) -> MisoState:
+def miso_state_from_jax(ms, device="cuda") -> MisoState:
     """A JAX ``MisoState`` whose leaves are numpy arrays -> the port's."""
+    device = resolve_device(device)
     return MisoState(particle=_particles(ms.particle, device),
                      tracking=_t(ms.tracking, device, torch.bool))
 
 
-def awpu_state_from_jax(state, device=None, mesh=None) -> AwpuState:
+def awpu_state_from_jax(state, device="cuda", mesh=None) -> AwpuState:
     """A JAX ``AwpuState`` whose leaves are numpy arrays (its PRNG key is
     not read) -> the port's ``AwpuState``; the counters become host ints.
     With a ``mesh`` the whole state becomes this rank's shards (its
-    channels of the history, its directions of the powers), so that both
-    packages can start a sharded run from one state."""
+    channels of the history, its directions of the powers), placed as
+    ``awpu_init`` places them (on a CUDA mesh, the rank's card), so that
+    both packages can start a sharded run from one state."""
+    layout, device = _placement(mesh, device)
     whole = AwpuState(
         history=_t(state.history, device, torch.float32),
         swarm=swarm_state_from_jax(state.swarm, device),
@@ -68,12 +72,13 @@ def awpu_state_from_jax(state, device=None, mesh=None) -> AwpuState:
         block_index=int(np.asarray(state.block_index)),
         powers=_t(state.powers, device, torch.float32),
     )
-    return shard_state(whole, None if mesh is None else Layout(mesh))
+    return shard_state(whole, layout)
 
 
-def mvdr_state_from_jax(state, device=None) -> MvdrState:
+def mvdr_state_from_jax(state, device="cuda") -> MvdrState:
     """A JAX ``MvdrState`` whose leaves are numpy arrays -> the port's; the
     counter becomes a host int."""
+    device = resolve_device(device)
     return MvdrState(
         cov_re=_t(state.cov_re, device, torch.float32),
         cov_im=_t(state.cov_im, device, torch.float32),
@@ -83,9 +88,10 @@ def mvdr_state_from_jax(state, device=None) -> MvdrState:
     )
 
 
-def music_state_from_jax(state, device=None) -> MusicState:
+def music_state_from_jax(state, device="cuda") -> MusicState:
     """A JAX ``MusicState`` whose leaves are numpy arrays -> the port's; the
     counter becomes a host int."""
+    device = resolve_device(device)
     return MusicState(
         cov_re=_t(state.cov_re, device, torch.float32),
         cov_im=_t(state.cov_im, device, torch.float32),
@@ -115,7 +121,7 @@ def awpu_state_from_jax_checkpoint(path: str, template: AwpuState,
     return load_state(path, _on(template, resolve_device(device)))
 
 
-def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
+def fft_model_from_jax(model, device="cuda") -> FftHeatmapModel:
     """The JAX ``FftHeatmapModel`` (any ``power_path``, PHAT and the
     lattice-order promise included) -> the port's module with the same
     constants."""
@@ -134,7 +140,8 @@ def fft_model_from_jax(model, device=None) -> FftHeatmapModel:
     )
 
 
-def mimo_model_from_jax(model, compute: str = "float32", device=None) -> MimoModel:
+def mimo_model_from_jax(model, compute: str = "float32",
+                        device="cuda") -> MimoModel:
     """The JAX ``MimoModel`` (its dense stencil ``weights`` [D, C, S]) ->
     the port's model of the same beams: for each direction and channel the
     ``taps`` columns from the first weighted one (moved back to fit the

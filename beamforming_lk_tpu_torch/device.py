@@ -9,7 +9,7 @@ import contextlib
 import torch
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device="cuda") -> torch.device:
     """The torch device of an entry point's ``device`` argument: raises
     when CUDA is asked for on a host without it (the plain twins run only
     when the caller asks for the CPU)."""

@@ -10,13 +10,18 @@ from __future__ import annotations
 
 import torch
 
+from beamforming_lk_tpu_torch.device import resolve_device
+
 #: Samples of lookahead kept past the beamformed block so interpolation taps
 #: (up to 8 for the FIR bank) never read off the end of history.
 LOOKAHEAD_GUARD = 8
 
 
-def ring_init(channels: int, history: int, device=None, dtype=torch.float32):
-    return torch.zeros((channels, history), dtype=dtype, device=device)
+def ring_init(channels: int, history: int, device="cuda", dtype=torch.float32):
+    """A zero history [channels, history] on ``device`` (the card unless
+    it names the CPU)."""
+    return torch.zeros((channels, history), dtype=dtype,
+                       device=resolve_device(device))
 
 
 def ring_push(history, block):

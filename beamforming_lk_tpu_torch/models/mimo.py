@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import cuda_das as cd
 from beamforming_lk_tpu_torch.ops import delay as dl
@@ -47,8 +48,9 @@ class MimoModel(nn.Module):
 
     def __init__(self, shift, tap_weights, theta, phi, rows: int, columns: int,
                  shift_range: int, use_bandpass: bool = True,
-                 compute: str = "float32", device=None):
+                 compute: str = "float32", device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.register_buffer("shift", torch.as_tensor(
             np.ascontiguousarray(shift, np.int32), device=device))
         self.register_buffer("tap_weights", torch.as_tensor(
@@ -66,13 +68,14 @@ class MimoModel(nn.Module):
 
 def make_mimo_model(points, mimo_cfg, dsp_cfg, array_cfg, channel_mask=None,
                     fir_bank=None, compute: str = "float32",
-                    device=None, layout=None) -> MimoModel:
+                    device="cuda", layout=None) -> MimoModel:
     """Build the split of the heatmap grid on the host from
     ``steering_delays_np`` (shifts equal the JAX package's bit for bit),
     the channel mask multiplying the tap weights (mimo.cpp:20-59).  With a
     mesh ``layout`` (``parallel.mesh.Layout``) the model holds this rank's
     (direction, channel) block of the split, the JAX package's
-    ``P(dir, ch, None)``, and the grid stays whole."""
+    ``P(dir, ch, None)``, and the grid stays whole.  The model lies on
+    ``device``, the card unless it names the CPU."""
     theta, phi = make_mimo_grid(mimo_cfg)
     delays = ant.steering_delays_np(np.asarray(points), theta, phi,
                                     array_cfg.samples_per_meter)

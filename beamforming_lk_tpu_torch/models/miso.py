@@ -25,7 +25,10 @@ class MisoState(NamedTuple):
     tracking: torch.Tensor   # [] bool
 
 
-def miso_init(theta=0.0, phi=0.0, device=None) -> MisoState:
+def miso_init(theta=0.0, phi=0.0, device="cuda") -> MisoState:
+    """The listener at (``theta``, ``phi``), tracking, on ``device`` (the
+    card unless it names the CPU)."""
+    device = resolve_device(device)
     z = torch.zeros((1,), dtype=torch.float32, device=device)
     return MisoState(
         particle=Particles(
@@ -61,9 +64,10 @@ class MisoStep(nn.Module):
     ``forward(state, window [C, T+S]) -> (state, beam [T])``."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 refine_steps: int = 3, probe_span=None, device=None,
+                 refine_steps: int = 3, probe_span=None, device="cuda",
                  layout=None):
         super().__init__()
+        device = resolve_device(device)
         span = (dsp.shift_range if probe_span is None
                 else min(probe_span, dsp.shift_range))
         rate = cfg.tracker_step_gain * cfg.tracker_spread / 3.0
@@ -85,7 +89,7 @@ class MisoStep(nn.Module):
 
 def make_miso_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                         refine_steps: int = 3, probe_span=None,
-                        device=None, layout=None) -> MisoStep:
+                        device="cuda", layout=None) -> MisoStep:
     """The unfused MISO per-block update (the JAX package's function of the
     same name); ``layout`` (``parallel.mesh.Layout``) shards it as the JAX
     package's ``axis_name``."""
@@ -103,4 +107,4 @@ def make_miso_step(points, cfg, dsp, array_cfg, channel_mask=None,
     span = dl.probe_span(points, array_cfg.samples_per_meter, taps,
                          dsp.shift_range)
     return MisoStep(cfg, dsp, array_cfg, points, channel_mask, refine_steps,
-                    span, resolve_device(device))
+                    span, device)

@@ -87,8 +87,7 @@ class MusicStep(CovarianceStep):
         if solver not in ("subspace", "eigh"):
             raise ValueError(f"solver must be 'subspace' or 'eigh', got {solver!r}")
         super().__init__(points, theta, phi, array_cfg, frame_size, hop, f_low,
-                         f_high, ema_alpha, channel_mask, resolve_device(device),
-                         shard)
+                         f_high, ema_alpha, channel_mask, device, shard)
         self.n_sources, self.solver = k, solver
         self.subspace_iters = int(subspace_iters)
         self.n_noise = 2 * (c - k)

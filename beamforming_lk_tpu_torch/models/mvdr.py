@@ -132,8 +132,9 @@ class CovarianceStep(nn.Module):
     :meth:`reduce` sums a per-bin total over the ranks."""
 
     def __init__(self, points, theta, phi, array_cfg, frame_size, hop, f_low,
-                 f_high, ema_alpha, channel_mask, device, shard=None):
+                 f_high, ema_alpha, channel_mask, device="cuda", shard=None):
         super().__init__()
+        device = resolve_device(device)
         bins = select_bins(frame_size, array_cfg.sample_rate, f_low, f_high)
         binw = np.ones(len(bins), np.float32)
         self.shard = shard
@@ -211,8 +212,7 @@ class MvdrStep(CovarianceStep):
                  diagonal_loading: float = 1e-3, channel_mask=None,
                  weight_refresh: int = 1, device="cuda", shard=None):
         super().__init__(points, theta, phi, array_cfg, frame_size, hop, f_low,
-                         f_high, ema_alpha, channel_mask, resolve_device(device),
-                         shard)
+                         f_high, ema_alpha, channel_mask, device, shard)
         self.diagonal_loading = diagonal_loading
         self.weight_refresh = int(weight_refresh)
 

@@ -94,7 +94,18 @@ def _swarm_jumps(generator, n_iter: int, n_seekers: int, jump: float,
     return u[0], u[1]
 
 
-def swarm_init(cfg, generator, device=None) -> SwarmState:
+def swarm_init(cfg, generator, device="cuda") -> SwarmState:
+    """A fresh swarm on ``device`` (the card unless it names the CPU): the
+    seekers drawn uniform in the search domain from ``generator``, which
+    must lie on the same kind of device (a CUDA ``torch.Generator`` on the
+    card); no trackers yet."""
+    device = resolve_device(device)
+    if generator is not None and generator.device.type != device.type:
+        raise ValueError(
+            f"swarm_init draws on {device} but the generator is on "
+            f"{generator.device}; pass a torch.Generator(device="
+            f"{device.type!r}) or device={generator.device.type!r}"
+        )
     s_theta, s_phi = _random_directions(
         generator, cfg.n_seekers, cfg.theta_limit, device
     )
@@ -139,7 +150,7 @@ class ProbeChain(nn.Module):
     channels is the global one with no collective."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask, span: int,
-                 layout=None, device=None):
+                 layout=None, device="cuda"):
         super().__init__()
         self.dsp, self.span = dsp, span
         self.register_buffer("xyz", ctk.pack_geometry(
@@ -200,6 +211,7 @@ class _SwarmRows(nn.Module):
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask, probe_span,
                  n_miso: int, refine: int, device, layout=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg, self.dsp = cfg, dsp
         self.taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
         self.span = (
@@ -455,7 +467,7 @@ class SwarmStep(_SwarmRows):
     (state, Targets)``; ``draws`` as :class:`FusedSwarmStep`'s."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 probe_span=None, device=None, layout=None):
+                 probe_span=None, device="cuda", layout=None):
         super().__init__(cfg, dsp, array_cfg, points, channel_mask,
                          probe_span, 0, 0, device, layout)
 
@@ -479,7 +491,7 @@ class FusedSwarmStep(_SwarmRows):
     package's own draws through it)."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
-                 probe_span=None, miso_refine_steps: int = 3, device=None,
+                 probe_span=None, miso_refine_steps: int = 3, device="cuda",
                  layout=None):
         if cfg.iterations * cfg.tracker_steps < miso_refine_steps:
             raise ValueError(
@@ -511,8 +523,9 @@ class MisoBeam(nn.Module):
     all-reduced over ``ch``."""
 
     def __init__(self, dsp, array_cfg, points, channel_mask, span: int,
-                 device=None, layout=None):
+                 device="cuda", layout=None):
         super().__init__()
+        device = resolve_device(device)
         self.dsp, self.span = dsp, span
         self.channels = (slice(None) if layout is None
                          else layout.ch.part(np.shape(points)[1]))
@@ -622,7 +635,7 @@ def _require_probe_kernel(cfg, allowed):
 
 
 def make_swarm_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
-                         probe_span=None, device=None,
+                         probe_span=None, device="cuda",
                          layout=None) -> SwarmStep:
     """The unfused swarm per-block update (the JAX package's function of
     the same name); ``layout`` (``parallel.mesh.Layout``) shards it as the
@@ -634,7 +647,7 @@ def make_swarm_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
 
 def make_fused_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                          probe_span=None, miso_refine_steps: int = 3,
-                         device=None, layout=None) -> FusedSwarmStep:
+                         device="cuda", layout=None) -> FusedSwarmStep:
     """The fused swarm + MISO per-block update (the JAX package's function
     of the same name); ``layout`` as :func:`make_swarm_step_impl`'s."""
     _require_probe_kernel(cfg, ("pallas", "xla"))
@@ -646,7 +659,7 @@ def make_fused_step_impl(cfg, dsp, array_cfg, points, channel_mask=None,
 
 def make_fused_chunk_impl(cfg, dsp, array_cfg, points, channel_mask=None,
                           probe_span=None, miso_refine_steps: int = 3,
-                          device=None) -> FusedChunkStep:
+                          device="cuda") -> FusedChunkStep:
     """K blocks of the fused update per launch of the chunk kernel (the JAX
     package's ``make_fused_chunk_impl``; K is the leading axis of the
     windows it is given).  Like the JAX package's, it needs the kernel
@@ -669,4 +682,4 @@ def make_swarm_step(points, cfg, dsp, array_cfg, channel_mask=None,
     span = dl.probe_span(points, array_cfg.samples_per_meter, taps,
                          dsp.shift_range)
     return make_swarm_step_impl(cfg, dsp, array_cfg, points, channel_mask,
-                                probe_span=span, device=resolve_device(device))
+                                probe_span=span, device=device)

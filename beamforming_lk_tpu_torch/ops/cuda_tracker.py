@@ -46,6 +46,7 @@ import os
 import numpy as np
 import torch
 
+from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops.geometry import PI_HALF
 
@@ -76,9 +77,10 @@ _SOURCE = os.path.join(
 )
 
 
-def pack_geometry(points, samples_per_meter, channel_mask=None, device=None):
-    """[4, C] f32 geometry operand: rows x, y, z times samples-per-metre and
-    the channel validity mask."""
+def pack_geometry(points, samples_per_meter, channel_mask=None, device="cuda"):
+    """[4, C] f32 geometry operand on ``device`` (the card unless it names
+    the CPU): rows x, y, z times samples-per-metre and the channel validity
+    mask."""
     pts = np.asarray(points, np.float64) * float(samples_per_meter)
     mask = (
         np.ones(pts.shape[1], np.float64)
@@ -86,7 +88,8 @@ def pack_geometry(points, samples_per_meter, channel_mask=None, device=None):
         else np.asarray(channel_mask, np.float64)
     )
     return torch.as_tensor(
-        np.vstack([pts, mask[None]]), dtype=torch.float32, device=device
+        np.vstack([pts, mask[None]]), dtype=torch.float32,
+        device=resolve_device(device),
     )
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from beamforming_lk_tpu_torch.device import resolve_device
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops.cuda_tracker import check_operand, require_cuda
 
@@ -143,10 +144,11 @@ class FftHeatmapModel(nn.Module):
                  block_size: int, fft_len: int, n_active: float,
                  use_bandpass: bool = True, compute: str = "float32",
                  phat: bool = False, band_weight=None, channel_perm=None,
-                 power_path: str = "fused", device=None):
+                 power_path: str = "fused", device="cuda"):
         super().__init__()
         if power_path not in POWER_PATHS:
             raise ValueError(f"power_path {power_path!r} not in {POWER_PATHS}")
+        device = resolve_device(device)
 
         def buf(name, a, dtype=torch.float32):
             t = None if a is None else torch.as_tensor(
@@ -192,7 +194,7 @@ def make_fft_heatmap_model(
     phat_band=(550.0, 9000.0),
     power_path: str = "fused",
     assume_lattice_order: bool = False,
-    device=None,
+    device="cuda",
 ) -> Optional[FftHeatmapModel]:
     """Precompute the separable steering factors in numpy float64, or
     return None when the configuration does not factor (non-lattice points
@@ -200,7 +202,9 @@ def make_fft_heatmap_model(
     (module docstring); ``phat_band`` [Hz] the bins PHAT keeps.
     ``assume_lattice_order=True`` promises windows whose rows are in
     lattice-site order (row ``s`` = channel ``model.channel_perm[s]``),
-    which drops the per-block permutation product."""
+    which drops the per-block permutation product.  The model lies on
+    ``device``, the card unless it names the CPU."""
+    device = resolve_device(device)
     lat = lattice_factorization(points)
     if lat is None:
         return None

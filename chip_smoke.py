@@ -20,6 +20,14 @@ Phases (any failed check raises, so the exit code is non-zero):
    time, the twin's, ``torch.matmul``'s alone and the fused path's;
 6. a small end-to-end check: 9 blocks through the f32 profile on the card
    and on the CPU (the twin), outputs compared;
+6b. the 64-mic realtime path in f32 assembled from the low-level builders
+   (``ring_init``, ``swarm_init`` with a CUDA generator, ``miso_init``,
+   ``pack_geometry``, ``make_fft_heatmap_model``, ``make_mimo_model``,
+   ``make_fused_step_impl``, ``make_fused_chunk_impl``,
+   ``convert.awpu_state_from_jax``), each called with no device argument:
+   every tensor on the card, the seekers the CUDA generator's stream; 3
+   blocks through K1, a 12-block chunk through K2 and a dense map through
+   K4, held against the same pieces built with ``device="cpu"``;
 7. the live slice: ``AwpuPipeline(realtime(Config()), channels=64|256)`` on
    96 plane-wave blocks through ``process_block``, locked on the source,
    with K1 launched once per block and the ms per block; at 256 mics the
@@ -106,7 +114,10 @@ Phases (any failed check raises, so the exit code is non-zero):
     10's ``torch.matmul`` of the dense stencil by the unfolded window, the
     JAX package's ``das_beam``), then the final status line; printed after
     phase 15, whose K0 and K4 launches they count:
-15a. the mesh on one rank: a world-size-1 NCCL group and a 1x1 mesh,
+15a. the mesh on one rank: a world-size-1 NCCL group and a 1x1 mesh; a
+    state carried over by ``convert.awpu_state_from_jax(..., mesh=mesh)``
+    with no device argument lies on the rank's card and equals
+    ``awpu_init``'s; then
     ``AwpuPipeline(realtime(Config()), channels=256, mesh=mesh)`` on 96
     blocks through ``process_block`` and 24 through ``process_blocks``,
     block by block against the unsharded pipeline on the XLA chain from
@@ -463,6 +474,162 @@ def _counts(**expected) -> dict:
     if got != want:
         raise AssertionError(f"launches {got}, expected {want}")
     return got
+
+
+def _numpy_tree(tree):
+    """A state tree with numpy leaves, the form ``convert`` reads."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    if isinstance(tree, tuple):
+        return type(tree)(*(_numpy_tree(v) for v in tree))
+    return tree
+
+
+def _tensors(tree) -> list:
+    """The tensors of a state tree, or a module's parameters and buffers."""
+    import torch
+
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters()) + list(tree.buffers())
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def run_default_built():
+    """Phase 6b: the 64-mic realtime main path in f32 assembled from the
+    low-level builders, each called with no device argument, then the
+    same pieces built with ``device="cpu"`` (the twins).  Every tensor of
+    the default build must lie on the card; the start state goes through
+    ``convert.awpu_state_from_jax`` of its numpy leaves on each device;
+    3 blocks through K1, one 12-block chunk through K2 and one dense map
+    through K4, each held against the twins at :func:`end_to_end_check`'s
+    bounds (maps within 1e-4 of the peak, equal target flags, directions
+    within 2e-3 rad, MISO beams within 1e-2 of the peak).  Returns the
+    launches of the card's run by kernel."""
+    import torch
+
+    from beamforming_lk_tpu_torch import Config, convert, realtime
+    from beamforming_lk_tpu_torch.app.awpu import AwpuState
+    from beamforming_lk_tpu_torch.io import ring as rg
+    from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block
+    from beamforming_lk_tpu_torch.models import miso as ms
+    from beamforming_lk_tpu_torch.models import tracker as tk
+    from beamforming_lk_tpu_torch.models.mimo import make_mimo_model, mimo_power
+    from beamforming_lk_tpu_torch.ops import antenna as ant
+    from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
+    from beamforming_lk_tpu_torch.ops import delay as dl
+    from beamforming_lk_tpu_torch.ops import fft_das as fd
+
+    cfg = realtime(Config())
+    cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, compute="float32", probe_compute="float32"))
+    dsp, tc, arr = cfg.dsp, cfg.tracker, cfg.array
+    pts = ant.multi_array_cluster(64)
+    taps = dl.LINEAR_TAPS if dsp.interp == "linear" else dsp.fir_taps
+    span = dl.probe_span(pts, arr.samples_per_meter, taps, dsp.shift_range)
+
+    def build(**dev):
+        return dict(
+            xyz=ctk.pack_geometry(pts, arr.samples_per_meter, **dev),
+            fft=fd.make_fft_heatmap_model(pts, cfg.mimo, dsp, arr,
+                                          compute=dsp.compute, **dev),
+            dense=make_mimo_model(pts, cfg.mimo, dsp, arr, compute=dsp.compute,
+                                  **dev),
+            fused=tk.make_fused_step_impl(tc, dsp, arr, pts, probe_span=span, **dev),
+            chunk=tk.make_fused_chunk_impl(tc, dsp, arr, pts, probe_span=span, **dev),
+        )
+
+    card, cpu = build(), build(device="cpu")
+    seed = 0
+    fresh = AwpuState(
+        history=rg.ring_init(64, dsp.history),
+        swarm=tk.swarm_init(tc, torch.Generator(device="cuda").manual_seed(seed)),
+        miso=ms.miso_init(), prev_max=torch.zeros((), device="cuda"),
+        block_index=0, powers=torch.zeros((cfg.mimo.n_directions,), device="cuda"))
+    # The seekers are the generator's stream as the draw defines it.
+    u = torch.rand((2, tc.n_seekers), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(seed))
+    if not (torch.equal(fresh.swarm.seekers.theta, u[0] * tc.theta_limit)
+            and torch.equal(fresh.swarm.seekers.phi, u[1] * (2.0 * math.pi))):
+        raise AssertionError("swarm_init's draw is not the generator's stream")
+    as_numpy = _numpy_tree(fresh)
+    start = {"card": convert.awpu_state_from_jax(as_numpy),
+             "cpu": convert.awpu_state_from_jax(as_numpy, device="cpu")}
+    if not _same(start["card"], fresh):
+        raise AssertionError("awpu_state_from_jax did not carry the state over")
+    if not torch.equal(card["xyz"], card["fused"].probes.xyz):
+        raise AssertionError("pack_geometry differs from the step's geometry")
+    placed = _tensors(tuple(card.values())) + _tensors(fresh) + _tensors(start["card"])
+    off = sorted({str(t.device) for t in placed if t.device.type != "cuda"})
+    if off:
+        raise AssertionError(f"default-built tensors on {off}, not the card")
+
+    rng = np.random.default_rng(6)
+    n = 3 + CHUNK
+    blocks = np.stack([plane_wave_block(pts, [SOURCE], i * 256, 256, arr,
+                                        noise_std=0.02, rng=rng) for i in range(n)])
+    draws = [(rng.uniform(0, tc.theta_limit, tc.n_seekers).astype(np.float32),
+              rng.uniform(0, 2 * np.pi, tc.n_seekers).astype(np.float32),
+              *(rng.uniform(-1, 1, (2, tc.iterations, tc.n_seekers))
+                * tc.theta_limit / 2).astype(np.float32)) for _ in range(n)]
+    chunk_draws = tuple(np.stack([d[j] for d in draws[3:]]) for j in range(4))
+    runs, counts = {}, None
+    for name, parts, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        st = start[name]
+        hist, swarm, miso_p = st.history, st.swarm, st.miso.particle
+        out = []
+        if name == "card":
+            _reset_counts()
+        for i in range(3):
+            hist = rg.ring_push(hist, torch.as_tensor(blocks[i], device=dev))
+            window = rg.ring_window(hist, dsp.block_size, dsp.shift_range, taps)
+            powers = parts["fft"](window)
+            swarm, tg, miso_p, beam = parts["fused"](swarm, miso_p, window, i,
+                                                     draws=draws[i])
+            out.append((tg, beam))
+        # The replay's windows: views of the history and the chunk's blocks
+        # behind it (as ``AwpuStep.scan_chunks`` makes them).
+        big = torch.cat([hist, torch.as_tensor(blocks[3:], device=dev).permute(
+            1, 0, 2).reshape(64, CHUNK * dsp.block_size)], dim=1)
+        windows = rg.ring_windows(big, dsp.block_size, dsp.shift_range, taps, CHUNK)
+        swarm, tgs, miso_p, beams = parts["chunk"](swarm, miso_p, windows, 3,
+                                                   draws=chunk_draws)
+        out += [(tk.Targets(*(f[k] for f in tgs)), beams[k]) for k in range(CHUNK)]
+        dense = mimo_power(windows[-1], parts["dense"])
+        if name == "card":
+            torch.cuda.synchronize()
+            counts = _counts(swarm_chain=3, swarm_chunk=1, das_beam=1)
+        runs[name] = (powers.cpu(), dense.cpu(), _state_to(miso_p, "cpu"),
+                      [(_state_to(tg, "cpu"), b.cpu()) for tg, b in out])
+    (fft_a, dense_a, m_a, out_a), (fft_b, dense_b, m_b, out_b) = runs["card"], runs["cpu"]
+    for what, p in (("fft map", fft_a), ("dense map", dense_a)):
+        check_map(f"6b {what}", cfg, p)
+    worst = dict(
+        fft=float((fft_a - fft_b).abs().max() / fft_b.abs().max()),
+        dense=float((dense_a - dense_b).abs().max() / dense_b.abs().max()),
+        direction=_angle(m_a.theta, m_a.phi, m_b.theta, m_b.phi), beam=0.0)
+    for k, ((ta, ba), (tb, bb)) in enumerate(zip(out_a, out_b)):
+        if not torch.equal(ta.valid, tb.valid):
+            raise AssertionError(f"6b block {k}: target flags differ from the twins'")
+        worst["direction"] = max(worst["direction"], _angle(
+            ta.theta, ta.phi, tb.theta, tb.phi))
+        worst["beam"] = max(worst["beam"], float((ba - bb).abs().max()
+                                                 / bb.abs().max()))
+    published = sum(bool(ta.valid.any()) for ta, _ in out_a)
+    print(f"6b default-built realtime path, 64 mics f32: {len(placed)} tensors "
+          f"all on cuda; launches {counts}; vs device='cpu' over {n} blocks "
+          f"(targets published in {published}): flags equal, "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (tol: maps 1e-4, direction 2e-3, beam 1e-2)", flush=True)
+    for k, tol in (("fft", 1e-4), ("dense", 1e-4), ("direction", 2e-3), ("beam", 1e-2)):
+        if not worst[k] <= tol:
+            raise AssertionError(f"6b {k} error {worst[k]:.3g} > {tol}")
+    return counts
 
 
 def chunk_operands(channels: int, compute: str, device, seed: int = 0):
@@ -2411,13 +2578,16 @@ def run_mesh_one_rank():
     blocks through ``process_block``, then 24 through ``process_blocks``,
     against the unsharded pipeline from the same seed on the XLA chain (the
     backend a mesh takes), block by block at the sharded bounds; K0 twice a
-    block, no K4; locked; ms a block of both.  Returns (K0 launches, ms a
-    block under the mesh, unsharded ms a block)."""
+    block, no K4; locked; ms a block of both.  Before them, a state that
+    ``convert.awpu_state_from_jax`` carries over under the mesh, with no
+    device argument, lies where ``awpu_init`` puts it and equals it.
+    Returns (K0 launches, ms a block under the mesh, unsharded ms a
+    block)."""
     import torch
     import torch.distributed as dist
 
-    from beamforming_lk_tpu_torch import Config, realtime
-    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch import Config, convert, realtime
+    from beamforming_lk_tpu_torch.app import AwpuPipeline, awpu_init
     from beamforming_lk_tpu_torch.parallel import single_device_mesh
     from beamforming_lk_tpu_torch.parallel.multihost import initialize
 
@@ -2425,6 +2595,12 @@ def run_mesh_one_rank():
     try:
         mesh = single_device_mesh()
         cfg = realtime(Config())
+        init = awpu_init(cfg, 256, mesh=mesh)
+        carried = convert.awpu_state_from_jax(_numpy_tree(init), mesh=mesh)
+        placed = {str(t.device) for t in _tensors(carried)}
+        if placed != {str(t.device) for t in _tensors(init)} or not _same(carried, init):
+            raise AssertionError(f"15a: the carried-over state on {placed}, not "
+                                 "as awpu_init places it")
         pipes = [AwpuPipeline(cfg, channels=256, seed=0, mesh=mesh, device="cuda"),
                  AwpuPipeline(_xla(cfg), channels=256, seed=0, device="cuda")]
         blocks = _plane_wave_blocks(pipes[0], cfg, 256, "cuda", N_BLOCKS + CHUNK * 2)
@@ -2459,7 +2635,8 @@ def run_mesh_one_rank():
         dist.destroy_process_group()
     print(f"15a mesh 1x1 (NCCL, one rank), realtime, 256 mics, {N_BLOCKS} blocks "
           f"live + {CHUNK * 2} replayed: {counts['monopulse_chain']} K0 launches "
-          f"(2 a block), no K4, no collective; {lock}; {ms[0]:.4f} ms/block "
+          f"(2 a block), no K4, no collective; state carried over on "
+          f"{sorted(placed)} as awpu_init's; {lock}; {ms[0]:.4f} ms/block "
           f"device under the mesh, {ms[1]:.4f} unsharded on the XLA chain; vs "
           f"unsharded, worst excess over the sharded bounds "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()), flush=True)
@@ -2884,6 +3061,8 @@ def main() -> int:
             k3[rows, compute] = compare_power(rows, compute, "cuda")
     end_to_end_check("cuda")
     launches = dict.fromkeys(_wrappers(), 0)
+    for name, n in run_default_built().items():
+        launches[name] += n
     for ch in (64, 256):
         launches["swarm_chain"] += run_slice(ch, "cuda")[0]
     for ch in (64, 256):

@@ -89,7 +89,7 @@ def _port_from(jax_run, start, compute="float32"):
     states, draws = jax_run[:2]
     _, tc = _configs(compute)
     pipe = AwpuPipeline(tc, points=PTS, seed=0, device="cpu")
-    pipe.state = awpu_state_from_jax(states[start])
+    pipe.state = awpu_state_from_jax(states[start], device="cpu")
     blocks = _blocks()
     outs = [pipe.process_block(blocks[i], draws=draws[i])
             for i in range(start, N_BLOCKS)]

@@ -4,8 +4,11 @@ world-size-1 CPU mesh included) and raises for a mesh that is not a
 ``DeviceMesh``."""
 
 import dataclasses
+import functools
+import importlib
 import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 import tempfile
@@ -16,17 +19,23 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import beamforming_lk_tpu_torch  # noqa: E402
 from beamforming_lk_tpu_torch import config as tcfg  # noqa: E402
 from beamforming_lk_tpu_torch import convert  # noqa: E402
 from beamforming_lk_tpu_torch.app import AwpuPipeline  # noqa: E402
 from beamforming_lk_tpu_torch.app import awpu  # noqa: E402
 from beamforming_lk_tpu_torch.app import control  # noqa: E402
 from beamforming_lk_tpu_torch.io import checkpoint as ckpt  # noqa: E402
+from beamforming_lk_tpu_torch.io import ring as rg  # noqa: E402
 from beamforming_lk_tpu_torch.io.synthetic import plane_wave_block  # noqa: E402
 from beamforming_lk_tpu_torch.models import fusion, kalman  # noqa: E402
+from beamforming_lk_tpu_torch.models import miso as ms  # noqa: E402
 from beamforming_lk_tpu_torch.models import music as mu  # noqa: E402
 from beamforming_lk_tpu_torch.models import mvdr as mv  # noqa: E402
-from beamforming_lk_tpu_torch.models.mimo import make_mimo_grid  # noqa: E402
+from beamforming_lk_tpu_torch.models import tracker as tk  # noqa: E402
+from beamforming_lk_tpu_torch.models.mimo import (  # noqa: E402
+    MimoModel, make_mimo_grid, make_mimo_model,
+)
 from beamforming_lk_tpu_torch.ops import antenna as ant  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_das as cd  # noqa: E402
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk  # noqa: E402
@@ -124,6 +133,32 @@ def _replay_ray_log(**kw):
         return track_replay.replay(path, **kw)
 
 
+def _numpy_tree(tree):
+    """A port state with numpy leaves, the form ``convert`` reads."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numpy()
+    if isinstance(tree, tuple):
+        return type(tree)(*(_numpy_tree(v) for v in tree))
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_models():
+    """The JAX package's fft and dense heatmap models of ``SMALL`` at 64
+    mics, the inputs of ``convert``'s model converters."""
+    from beamforming_lk_tpu import config as jcfg
+    from beamforming_lk_tpu.models import mimo as jmm
+    from beamforming_lk_tpu.ops import fft_das as jfd
+
+    args = (ant.create_antenna_grid(), jcfg.MimoConfig(rows=16, columns=16),
+            jcfg.DspConfig(), jcfg.ArrayConfig())
+    return jfd.make_fft_heatmap_model(*args), jmm.make_mimo_model(*args)
+
+
+_PTS = ant.create_antenna_grid()
+_STEP_ARGS = (SMALL.tracker, SMALL.dsp, SMALL.array, _PTS)
+_ONE = np.zeros((1, 1), np.float32)
+
 # Each entry point that places work on a device: (function, a call of it).
 _ENTRY_POINTS = {
     "AwpuPipeline": (awpu.AwpuPipeline, lambda **kw: awpu.AwpuPipeline(SMALL, **kw)),
@@ -144,7 +179,121 @@ _ENTRY_POINTS = {
         ant.create_antenna_grid(), *make_mimo_grid(SMALL.mimo), **kw)),
     "music_init": (mu.music_init, lambda **kw: mu.music_init(11, 64, **kw)),
     "track_replay": (track_replay.replay, _replay_ray_log),
+    # The builders below it, each exported as the JAX package's is.
+    "ring_init": (rg.ring_init, lambda **kw: rg.ring_init(64, 1024, **kw)),
+    "pack_geometry": (ctk.pack_geometry,
+                      lambda **kw: ctk.pack_geometry(_PTS, 1.0, **kw)),
+    "make_fft_heatmap_model": (fd.make_fft_heatmap_model,
+                               lambda **kw: fd.make_fft_heatmap_model(
+                                   _PTS, SMALL.mimo, SMALL.dsp, SMALL.array, **kw)),
+    "FftHeatmapModel": (fd.FftHeatmapModel, lambda **kw: fd.FftHeatmapModel(
+        ex_s=_ONE, ey_s=_ONE, dft=_ONE, idft=_ONE, pow_ri=_ONE, rows=1,
+        columns=1, block_size=1, fft_len=2, n_active=1.0, **kw)),
+    "make_mimo_model": (make_mimo_model, lambda **kw: make_mimo_model(
+        _PTS, SMALL.mimo, SMALL.dsp, SMALL.array, **kw)),
+    "MimoModel": (MimoModel, lambda **kw: MimoModel(
+        np.zeros((1, 64), np.int32), np.zeros((1, 64, 2), np.float32),
+        *make_mimo_grid(tcfg.MimoConfig(rows=1, columns=1)), 1, 1, 64, **kw)),
+    "miso_init": (ms.miso_init, lambda **kw: ms.miso_init(**kw)),
+    "make_miso_step_impl": (ms.make_miso_step_impl,
+                            lambda **kw: ms.make_miso_step_impl(*_STEP_ARGS, **kw)),
+    "MisoStep": (ms.MisoStep, lambda **kw: ms.MisoStep(*_STEP_ARGS, **kw)),
+    "swarm_init": (tk.swarm_init, lambda **kw: tk.swarm_init(
+        SMALL.tracker, torch.Generator(), **kw)),
+    "make_swarm_step_impl": (tk.make_swarm_step_impl,
+                             lambda **kw: tk.make_swarm_step_impl(*_STEP_ARGS, **kw)),
+    "make_fused_step_impl": (tk.make_fused_step_impl,
+                             lambda **kw: tk.make_fused_step_impl(*_STEP_ARGS, **kw)),
+    "make_fused_chunk_impl": (tk.make_fused_chunk_impl,
+                              lambda **kw: tk.make_fused_chunk_impl(*_STEP_ARGS, **kw)),
+    "ProbeChain": (tk.ProbeChain, lambda **kw: tk.ProbeChain(
+        *_STEP_ARGS, None, 32, **kw)),
+    "SwarmStep": (tk.SwarmStep, lambda **kw: tk.SwarmStep(*_STEP_ARGS, **kw)),
+    "FusedSwarmStep": (tk.FusedSwarmStep,
+                       lambda **kw: tk.FusedSwarmStep(*_STEP_ARGS, **kw)),
+    "MisoBeam": (tk.MisoBeam, lambda **kw: tk.MisoBeam(
+        SMALL.dsp, SMALL.array, _PTS, None, 32, **kw)),
+    "AwpuStep": (awpu.AwpuStep, lambda **kw: awpu.AwpuStep(_PTS, SMALL, **kw)),
+    "CovarianceStep": (mv.CovarianceStep, lambda **kw: mv.CovarianceStep(
+        _PTS, *make_mimo_grid(SMALL.mimo), SMALL.array, 64, 32, 500.0, 4000.0,
+        0.1, None, **kw)),
+    "swarm_state_from_jax": (convert.swarm_state_from_jax,
+                             lambda **kw: convert.swarm_state_from_jax(_numpy_tree(
+                                 tk.swarm_init(SMALL.tracker, torch.Generator(),
+                                               device="cpu")), **kw)),
+    "miso_state_from_jax": (convert.miso_state_from_jax,
+                            lambda **kw: convert.miso_state_from_jax(
+                                _numpy_tree(ms.miso_init(device="cpu")), **kw)),
+    "awpu_state_from_jax": (convert.awpu_state_from_jax,
+                            lambda **kw: convert.awpu_state_from_jax(_numpy_tree(
+                                awpu.awpu_init(SMALL, 64, device="cpu")), **kw)),
+    "mvdr_state_from_jax": (convert.mvdr_state_from_jax,
+                            lambda **kw: convert.mvdr_state_from_jax(_numpy_tree(
+                                mv.mvdr_init(11, 64, 256, device="cpu")), **kw)),
+    "music_state_from_jax": (convert.music_state_from_jax,
+                             lambda **kw: convert.music_state_from_jax(_numpy_tree(
+                                 mu.music_init(11, 64, device="cpu")), **kw)),
+    "fft_model_from_jax": (convert.fft_model_from_jax,
+                           lambda **kw: convert.fft_model_from_jax(
+                               _jax_models()[0], **kw)),
+    "mimo_model_from_jax": (convert.mimo_model_from_jax,
+                            lambda **kw: convert.mimo_model_from_jax(
+                                _jax_models()[1], **kw)),
 }
+
+
+def _device_parameters():
+    """``device`` parameter of every public function and public class
+    constructor of the port, keyed by module (below the package) and name."""
+    found = {}
+    prefix = beamforming_lk_tpu_torch.__name__ + "."
+    for info in pkgutil.walk_packages(beamforming_lk_tpu_torch.__path__, prefix):
+        module = importlib.import_module(info.name)
+        for name, obj in vars(module).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != info.name:
+                continue
+            if not (inspect.isfunction(obj) or inspect.isclass(obj)):
+                continue
+            params = inspect.signature(obj).parameters
+            if "device" in params:
+                found[f"{info.name[len(prefix):]}.{name}"] = params["device"]
+    return found
+
+
+_DEVICE_PARAMETERS = _device_parameters()
+
+# Checks whose ``device`` is the one an operand must lie on: they place
+# nothing, and every caller names it.
+_DEVICE_CHECKS = {"ops.cuda_tracker.check_operand", "ops.cuda_tracker.require_cuda"}
+
+
+def test_device_parameters_are_found():
+    """The scan reaches every module: it finds each listed entry point and
+    each check."""
+    names = {n.rsplit(".", 1)[1] for n in _DEVICE_PARAMETERS}
+    assert set(_ENTRY_POINTS) - {"track_replay"} <= names
+    assert "tools.track_replay.replay" in _DEVICE_PARAMETERS
+    assert _DEVICE_CHECKS <= set(_DEVICE_PARAMETERS)
+
+
+@pytest.mark.parametrize("name", sorted(_DEVICE_PARAMETERS))
+def test_every_device_parameter_defaults_to_cuda(name):
+    """Every public function and class constructor of the port that takes
+    ``device`` defaults to the card, found without a hand list (a check
+    takes the operand's device without a default)."""
+    param = _DEVICE_PARAMETERS[name]
+    if name in _DEVICE_CHECKS:
+        assert param.default is inspect.Parameter.empty
+    else:
+        assert param.default == "cuda"
+
+
+def test_swarm_init_refuses_a_generator_on_another_device(monkeypatch):
+    """A CPU generator for a draw on the card raises, naming both devices,
+    and never moves the draw to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match=r"cuda.*cpu"):
+        tk.swarm_init(SMALL.tracker, torch.Generator())
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))

@@ -136,12 +136,12 @@ def test_mimo_power_and_converted_model_match_jax(interp):
     want = np.asarray(jmm.mimo_power(jnp.asarray(windows[0]), jmodel,
                                      n_active=62.0))
     model = mm.make_mimo_model(PTS, grids[1], dsps[1], tcfg.ArrayConfig(),
-                               channel_mask=mask)
+                               channel_mask=mask, device="cpu")
     j_shift, j_tapw = jax_delay_split_np(delays, S, interp, bank)
     np.testing.assert_array_equal(model.shift.numpy(), j_shift)
     np.testing.assert_array_equal(model.tap_weights.numpy(),
                                   j_tapw * mask[:, None])
-    for m in (model, mimo_model_from_jax(jmodel)):
+    for m in (model, mimo_model_from_jax(jmodel, device="cpu")):
         got = mm.mimo_power(torch.as_tensor(windows[0]), m, n_active=62.0)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     assert mm.mimo_power(torch.as_tensor(windows), model).shape == (1, 64)

@@ -33,7 +33,7 @@ def _models(n_mics, dead, interp="linear", compute="float32"):
             (jcfg.MimoConfig(rows=16, columns=16), jcfg.DspConfig(interp=interp),
              jcfg.ArrayConfig())]
     ours = tfd.make_fft_heatmap_model(pts, *args[0], channel_mask=mask,
-                                      compute=compute)
+                                      compute=compute, device="cpu")
     ref = jfd.make_fft_heatmap_model(pts, *args[1], channel_mask=mask,
                                      compute=compute)
     return pts, ours, ref
@@ -45,7 +45,7 @@ def _models(n_mics, dead, interp="linear", compute="float32"):
 ])
 def test_numpy_built_constants_match_jax_model(n_mics, dead, interp):
     _, ours, ref = _models(n_mics, dead, interp)
-    conv = fft_model_from_jax(ref)
+    conv = fft_model_from_jax(ref, device="cpu")
     for name in BUFFERS:
         a, b = getattr(ours, name), getattr(conv, name)
         assert (a is None) == (b is None), name
@@ -90,8 +90,8 @@ def test_gain_mask_and_non_lattice_do_not_factor():
     pts = ant.create_antenna_grid()
     args = (tcfg.MimoConfig(rows=16, columns=16), tcfg.DspConfig(),
             tcfg.ArrayConfig())
-    assert tfd.make_fft_heatmap_model(pts, *args,
-                                      channel_mask=np.full(64, 0.5)) is None
+    assert tfd.make_fft_heatmap_model(pts, *args, channel_mask=np.full(64, 0.5),
+                                      device="cpu") is None
     bent = pts.copy()
     bent[2, 3] = 0.01
-    assert tfd.make_fft_heatmap_model(bent, *args) is None
+    assert tfd.make_fft_heatmap_model(bent, *args, device="cpu") is None

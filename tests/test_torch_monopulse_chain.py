@@ -54,7 +54,8 @@ def _setup(seed, interp="linear"):
 def _twin(pw, rows, act, mask, kw, probe_layout="quadrant"):
     pw_t = torch.as_tensor(np.ascontiguousarray(pw))
     return ctk.monopulse_chain(
-        ctk.pack_geometry(PTS, SPM, channel_mask=mask), ctk.bandpass_window(pw_t),
+        ctk.pack_geometry(PTS, SPM, channel_mask=mask, device="cpu"),
+        ctk.bandpass_window(pw_t),
         torch.as_tensor(rows), torch.as_tensor(act.astype(np.float32)),
         probe_layout=probe_layout, **kw,
     ).numpy()
@@ -181,7 +182,8 @@ def _probe_stencils(pw, rows, mask, kw):
     ux, uy, uz = ctk._probe_dirs(rt[0], rt[1], rt[7], k)
     shift, w = ctk._stencil(
         ux.reshape(-1), uy.reshape(-1), uz.reshape(-1),
-        ctk.pack_geometry(PTS, SPM, channel_mask=mask), kw["span"], kw["taps"],
+        ctk.pack_geometry(PTS, SPM, channel_mask=mask, device="cpu"),
+        kw["span"], kw["taps"],
         kw["interp"], DspConfig().fir_phases, k["blackman"])
     return ctk.bandpass_window(torch.as_tensor(np.ascontiguousarray(pw))), shift, w
 

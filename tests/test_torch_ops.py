@@ -138,7 +138,7 @@ def test_probe_stencil_min_includes_masked_channels(interp):
     span = tdl.probe_span(pts, SPM, taps, 64)
     st = np.sin(theta)
     u = [torch.tensor(v) for v in (st * np.cos(phi), -st * np.sin(phi), np.cos(theta))]
-    xyz = ctk.pack_geometry(pts, SPM, channel_mask=mask)
+    xyz = ctk.pack_geometry(pts, SPM, channel_mask=mask, device="cpu")
     shift, w = ctk._stencil(*u, xyz, span, taps, interp, 101,
                             ctk._consts("quadrant", taps, 1.0)["blackman"])
     dense = np.zeros((8, 64, span), np.float32)
@@ -193,7 +193,7 @@ def test_unfold_beam_bandpass_power():
 
 
 def test_ring_push_and_window():
-    hist_t = trg.ring_init(8, 1024)
+    hist_t = trg.ring_init(8, 1024, device="cpu")
     hist_j = jrg.ring_init(8, 1024)
     for i in range(5):
         blk = RNG.standard_normal((8, 256)).astype(np.float32)
@@ -333,7 +333,7 @@ def test_step_builders_match_the_jax_packages():
     assert isinstance(swarm, ttk.SwarmStep) and isinstance(miso, tms.MisoStep)
     assert swarm.span == miso.probes.span == jdl.probe_span(
         pts, cfg.array.samples_per_meter, 2, cfg.dsp.shift_range)
-    hist = trg.ring_init(64, cfg.dsp.history)
+    hist = trg.ring_init(64, cfg.dsp.history, device="cpu")
     block = tsyn.plane_wave_block(pts, [(0.3, 1.0, 5000.0)], 0, 256, noise_std=0.02)
     window = trg.ring_window(trg.ring_push(hist, torch.as_tensor(block)),
                              256, cfg.dsp.shift_range, 2)

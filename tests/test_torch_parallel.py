@@ -64,6 +64,23 @@ def _draws(inputs, case, i):
     return tuple(inputs[f"{case}/draws{i}/{j}"] for j in range(4))
 
 
+def _numpy_tree(tree):
+    """A port state with numpy leaves, the form ``convert`` reads."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numpy()
+    if isinstance(tree, tuple):
+        return type(tree)(*(_numpy_tree(v) for v in tree))
+    return tree
+
+
+def _leaves(tree):
+    """The tensors of a port state in tree order (host counters as 0-d
+    tensors)."""
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [torch.as_tensor(tree)]
+
+
 def _awpu_cfg(iterations, backend="dense"):
     from beamforming_lk_tpu_torch import config as tcfg
 
@@ -74,7 +91,7 @@ def _awpu_cfg(iterations, backend="dense"):
 def _rank_cases():
     """Each case: (inputs) -> {name: array}, run on every rank in order."""
     from beamforming_lk_tpu_torch import convert
-    from beamforming_lk_tpu_torch.app import AwpuPipeline
+    from beamforming_lk_tpu_torch.app import AwpuPipeline, awpu_init
     from beamforming_lk_tpu_torch.models import music as mu
     from beamforming_lk_tpu_torch.models import mvdr as mv
     from beamforming_lk_tpu_torch.ops import delay as dl
@@ -175,6 +192,23 @@ def _rank_cases():
                 coordinate=np.array(m.get_coordinate()), note=np.array(note))
         return run
 
+    def placement(inp):
+        """A whole state carried over under a (2, 2) mesh, and the same
+        state from ``awpu_init`` under it: each leaf with its device."""
+        m = make_mesh((2, 2), device_type="cpu")
+        cfg = _awpu_cfg(1)
+        whole = awpu_init(cfg, 64, seed=5, device="cpu")
+        out = {}
+        for name, state in (
+                ("converted", convert.awpu_state_from_jax(_numpy_tree(whole),
+                                                          "cpu", mesh=m)),
+                ("init", awpu_init(cfg, 64, mesh=m, seed=5, device="cpu"))):
+            leaves = _leaves(state)
+            out.update({f"{name}{i}": v for i, v in enumerate(leaves)})
+            out[f"{name}_devices"] = np.array([str(v.device) for v in leaves])
+        out["n_leaves"] = np.array(len(leaves))
+        return out
+
     def estimator(kind, **kw):
         def run(inp):
             m = make_mesh((1, 4), device_type="cpu")
@@ -209,6 +243,7 @@ def _rank_cases():
         "fused": awpu("fused", 2),
         "scan": awpu("scan", 1, mask=False, batch=True),
         "fft": awpu("fft", 2, backend="fft", mask=False),
+        "placement": placement,
         "mvdr": estimator("mvdr"),
         "mvdr3": estimator("mvdr", weight_refresh=3),
         "music_subspace": estimator("music", solver="subspace"),
@@ -632,6 +667,19 @@ def test_fft_falls_back_to_dense_under_channel_sharding(run):
     outs = _case(run[2], "fft")
     assert all("using dense" in str(o["note"]) for o in outs)
     _hold_awpu(outs, jout, jstate)
+
+
+def test_state_from_jax_is_placed_as_awpu_init_places_it(run):
+    """``convert.awpu_state_from_jax(state, mesh=m)`` of a whole fresh
+    state gives each rank the shards that ``awpu_init(cfg, c, mesh=m)``
+    gives it, on the same device, leaf for leaf."""
+    for o in _case(run[2], "placement"):
+        n = int(o["n_leaves"])
+        np.testing.assert_array_equal(o["converted_devices"], o["init_devices"])
+        assert set(o["init_devices"]) == {"cpu"}
+        for i in range(n):
+            np.testing.assert_array_equal(o[f"converted{i}"], o[f"init{i}"])
+        assert o["converted0"].shape == (32, _awpu_cfg(1).dsp.history)
 
 
 @pytest.mark.parametrize("case", ["mvdr", "mvdr3"])

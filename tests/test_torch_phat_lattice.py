@@ -46,13 +46,13 @@ def _models(phat, lattice, compute="float32", power_path="pallas",
         mask = np.ones(n_mics, np.float32)
         mask[DEAD] = 0.0
     made = []
-    for m, build in ((tcfg, tfd.make_fft_heatmap_model),
-                     (jcfg, jfd.make_fft_heatmap_model)):
+    for m, build, kw in ((tcfg, tfd.make_fft_heatmap_model, {"device": "cpu"}),
+                         (jcfg, jfd.make_fft_heatmap_model, {})):
         made.append(build(
             pts, m.MimoConfig(rows=rows, columns=rows, fov_degrees=120.0,
                               phat=phat),
             m.DspConfig(), m.ArrayConfig(), channel_mask=mask, compute=compute,
-            power_path=power_path, assume_lattice_order=lattice))
+            power_path=power_path, assume_lattice_order=lattice, **kw))
     return pts, made[0], made[1]
 
 
@@ -72,7 +72,7 @@ def _rows(model, wins):
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_numpy_built_constants_match_jax_model(kind):
     _, ours, ref = _models(*KINDS[kind])
-    conv = fft_model_from_jax(ref)
+    conv = fft_model_from_jax(ref, device="cpu")
     assert ours.phat == conv.phat == KINDS[kind][0]
     for name in ("ex_s", "ey_s", "dft", "pow_ri", "perm_matrix", "band_weight",
                  "dead_xre", "dead_xim", "dead_yre", "dead_yim", "dead_chan"):
@@ -112,7 +112,7 @@ def test_powers_match_jax(kind, compute):
     want = np.asarray(jfd.fft_heatmap_powers_chunked(jnp.asarray(wins), ref))
     singles = np.stack([np.asarray(jfd.fft_heatmap_powers(jnp.asarray(w), ref))
                         for w in wins])
-    for model in (ours, fft_model_from_jax(ref)):
+    for model in (ours, fft_model_from_jax(ref, device="cpu")):
         got = tfd.fft_heatmap_powers_chunked(torch.as_tensor(wins), model).numpy()
         one = np.stack([tfd.fft_heatmap_powers(torch.as_tensor(w), model).numpy()
                         for w in wins])
@@ -134,11 +134,11 @@ def test_srp_phat_peaks_and_is_level_invariant():
     mimo = tcfg.MimoConfig(rows=16, columns=16, fov_degrees=120.0, phat=True)
     dsp, arr = tcfg.DspConfig(), tcfg.ArrayConfig()
     pts = ant.create_antenna_grid(8, 8, 0.02)
-    model = tfd.make_fft_heatmap_model(pts, mimo, dsp, arr)
+    model = tfd.make_fft_heatmap_model(pts, mimo, dsp, arr, device="cpu")
     assert model.phat
 
     def heatmap(amplitude):
-        hist = rg.ring_init(64, dsp.history)
+        hist = rg.ring_init(64, dsp.history, device="cpu")
         for b in synthetic_blocks(pts, TONES, 6, amplitude=amplitude, seed=4):
             hist = rg.ring_push(hist, torch.as_tensor(b))
         w = rg.ring_window(hist, dsp.block_size, dsp.shift_range, 2)
@@ -175,7 +175,8 @@ def test_phat_power_paths_agree(case, use_bandpass):
     window = torch.as_tensor(
         rng.standard_normal((64, dsp.shift_range + dsp.block_size)), dtype=torch.float32)
     got = {path: tfd.fft_heatmap_powers(window, tfd.make_fft_heatmap_model(
-        pts, mimo, dsp, tcfg.ArrayConfig(), power_path=path, **kw)).numpy()
+        pts, mimo, dsp, tcfg.ArrayConfig(), power_path=path, device="cpu",
+        **kw)).numpy()
         for path in tfd.POWER_PATHS}
     tol = 5e-3 if case == "bf16" else 1e-4
     np.testing.assert_allclose(got["fused"], got["beam"], rtol=tol, atol=1e-12)

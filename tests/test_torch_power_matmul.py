@@ -147,7 +147,7 @@ def _models(power_path, compute="float32", dead=True):
     ours = tfd.make_fft_heatmap_model(
         pts, tcfg.MimoConfig(rows=12, columns=12), tcfg.DspConfig(),
         tcfg.ArrayConfig(), channel_mask=mask, compute=compute,
-        power_path=power_path,
+        power_path=power_path, device="cpu",
     )
     return pts, ref, ours
 
@@ -164,7 +164,7 @@ def test_power_paths_match_jax(power_path):
     """Each power path, on the JAX model converted and on the port's own,
     single and chunked (3 windows), within 1e-4 of the peak in f32."""
     pts, ref, ours = _models(power_path)
-    conv = fft_model_from_jax(ref)
+    conv = fft_model_from_jax(ref, device="cpu")
     assert conv.power_path == ours.power_path == power_path
     wins = _windows(pts, 3)
     want = np.asarray(jfd.fft_heatmap_powers_chunked(jnp.asarray(wins), ref))
@@ -210,7 +210,8 @@ def test_lattice_order_model_is_not_ported():
     pts = ant.multi_array_cluster(256)
     ours = tfd.make_fft_heatmap_model(
         pts, tcfg.MimoConfig(rows=12, columns=12), tcfg.DspConfig(),
-        tcfg.ArrayConfig(), power_path="pallas", assume_lattice_order=True)
+        tcfg.ArrayConfig(), power_path="pallas", assume_lattice_order=True,
+        device="cpu")
     ref = jfd.make_fft_heatmap_model(
         pts, jcfg.MimoConfig(rows=12, columns=12), jcfg.DspConfig(),
         jcfg.ArrayConfig(), power_path="pallas", assume_lattice_order=True)

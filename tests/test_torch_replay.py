@@ -115,7 +115,8 @@ def test_process_blocks_matches_jax_fused_chunk(monkeypatch):
     jpipe = JaxPipeline(jc, points=PTS, seed=3)
     draws = _jax_key_draws(jpipe.state.swarm.key, jc.tracker, 12)
     pipe = AwpuPipeline(tc, points=PTS, device="cpu")
-    pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state))
+    pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state),
+                                     device="cpu")
     blocks = _blocks(12)
     want = jax.tree.map(np.asarray, jpipe.process_blocks(blocks))
     calls = _count_chunks(monkeypatch)
@@ -172,7 +173,8 @@ def test_heatmap_only_replay_matches_jax_chunk_scan():
     kw = dict(points=PTS, enable_tracker=False, enable_miso=False)
     jpipe = JaxPipeline(jc, seed=3, **kw)
     pipe = AwpuPipeline(tc, device="cpu", **kw)
-    pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state))
+    pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state),
+                                     device="cpu")
     assert pipe.step.chunk == 4
     blocks = _blocks(8)
     want = jax.tree.map(np.asarray, jpipe.process_blocks(blocks))

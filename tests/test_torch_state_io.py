@@ -120,7 +120,7 @@ def test_jax_checkpoint_loads_through_convert(tmp_path):
     path = str(tmp_path / "jax.npz")
     jstate = _jax_pipeline(4, path)
     pipe = AwpuPipeline(CFGS["fused_xla"], seed=5, device="cpu")
-    want = awpu_state_from_jax(jstate)
+    want = awpu_state_from_jax(jstate, device="cpu")
     got = awpu_state_from_jax_checkpoint(path, pipe.state, device="cpu")
     _assert_equal_trees(got, want)
     assert got.block_index == 4 and isinstance(got.swarm.reset_count, int)

@@ -75,7 +75,7 @@ def _run_both(interp, probe_layout, n_iter, n_sub, prefix_rows=0, seed=0,
     jout = [np.asarray(x) for x in jout]
     pw_t = torch.as_tensor(pw)
     state, mean, beam = ctk.swarm_chain(
-        ctk.pack_geometry(pts, SPM, channel_mask=mask),
+        ctk.pack_geometry(pts, SPM, channel_mask=mask, device="cpu"),
         ctk.bandpass_window(pw_t), pw_t, torch.as_tensor(rows),
         torch.as_tensor(jumps), torch.tensor(reference), block_index=3.0,
         **kw,

@@ -121,7 +121,7 @@ def test_chunk_twin_matches_pallas_chunk_kernel(probe_layout, interp):
     jout = [np.asarray(x) for x in jout]
     pw_t = torch.as_tensor(pw)
     state, mean, beams = ctk.swarm_chunk(
-        ctk.pack_geometry(PTS, SPM), ctk.bandpass_window(pw_t), pw_t,
+        ctk.pack_geometry(PTS, SPM, device="cpu"), ctk.bandpass_window(pw_t), pw_t,
         torch.as_tensor(rows), torch.as_tensor(jumps), torch.as_tensor(resets),
         torch.as_tensor(refs), block_index0=5, **kw,
     )
@@ -152,7 +152,7 @@ def _tracker_cfg(interp="linear"):
 def _windows(n, taps, seed=70):
     """Per-block windows [C, T+S] of n plane-wave blocks through the ring."""
     dsp = tcfg.DspConfig()
-    hist = rg.ring_init(64, dsp.history)
+    hist = rg.ring_init(64, dsp.history, device="cpu")
     out = []
     for i in range(n):
         blk = plane_wave_block(PTS, [SRC], i * T, T, noise_std=0.01,
@@ -169,8 +169,8 @@ def _steps(interp):
     span = dl.probe_span(PTS, SPM, taps, dsp.shift_range)
     args = (cfg, dsp, tcfg.ArrayConfig(), PTS)
     return (cfg, dsp, taps,
-            tk.make_fused_step_impl(*args, probe_span=span),
-            tk.make_fused_chunk_impl(*args, probe_span=span))
+            tk.make_fused_step_impl(*args, probe_span=span, device="cpu"),
+            tk.make_fused_chunk_impl(*args, probe_span=span, device="cpu"))
 
 
 @pytest.mark.parametrize("interp", ["linear", "fir"])
@@ -181,8 +181,8 @@ def test_fused_chunk_step_matches_per_block_steps(interp):
     cfg, _, taps, fused, chunk = _steps(interp)
     wins = _windows(6, taps)
     gens = [torch.Generator().manual_seed(9) for _ in range(2)]
-    states = [tk.swarm_init(cfg, g) for g in gens]
-    misos = [ms.miso_init(0.4, 1.0).particle for _ in range(2)]
+    states = [tk.swarm_init(cfg, g, device="cpu") for g in gens]
+    misos = [ms.miso_init(0.4, 1.0, device="cpu").particle for _ in range(2)]
     per_block = []
     for i, w in enumerate(wins):
         states[0], tg, misos[0], beam = fused(states[0], misos[0], w, i,
@@ -243,10 +243,10 @@ def test_chunk_step_matches_jax_fused_chunk_impl():
         hist = jrg.ring_push(hist, jnp.asarray(blk))
         wins.append(np.asarray(jrg.ring_window(hist, T, dsp.shift_range, taps)))
     draws = _jax_key_draws(jstate.key, jc, K)
-    state = swarm_state_from_jax(jax.tree.map(np.asarray, jstate))
+    state = swarm_state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
     _, jtg, _, jbeams = jchunk(jstate, jmiso, jnp.asarray(np.stack(wins)),
                                jnp.int32(0), jnp.asarray(PTS), None)
-    miso = ms.miso_init(0.4, 1.0).particle
+    miso = ms.miso_init(0.4, 1.0, device="cpu").particle
     _, tg, _, beams = chunk(state, miso, torch.as_tensor(np.stack(wins)), 0,
                             draws=draws)
     jtg = jax.tree.map(np.asarray, jtg)

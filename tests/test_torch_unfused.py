@@ -101,7 +101,7 @@ def test_swarm_step_matches_jax(probe_kernel, probe_layout, interp):
     jstep = jtk.make_swarm_step(PTS, made[0], dsps[0], jcfg.ArrayConfig())
     span = dl.probe_span(PTS, SPM, taps, 64)
     step = tk.make_swarm_step_impl(made[1], dsps[1], tcfg.ArrayConfig(), PTS,
-                                   probe_span=span)
+                                   probe_span=span, device="cpu")
     state = jtk.swarm_init(made[0], jax.random.PRNGKey(8))
     state = state._replace(
         trackers=state.trackers._replace(
@@ -113,7 +113,7 @@ def test_swarm_step_matches_jax(probe_kernel, probe_layout, interp):
         target_phi=state.target_phi.at[0].set(state.seekers.phi[0]),
         target_valid=state.target_valid.at[0].set(True),
     )
-    port = swarm_state_from_jax(jax.tree.map(np.asarray, state))
+    port = swarm_state_from_jax(jax.tree.map(np.asarray, state), device="cpu")
     pair_flags = []
     for i, window in enumerate(_windows(4, taps, 0)):
         draws = _draws(state.key, made[0])
@@ -146,9 +146,10 @@ def test_miso_step_matches_jax(interp):
     taps = dl.LINEAR_TAPS if interp == "linear" else dsps[1].fir_taps
     step = ms.make_miso_step_impl(tcs[1], dsps[1], tcfg.ArrayConfig(), PTS,
                                   channel_mask=mask,
-                                  probe_span=dl.probe_span(PTS, SPM, taps, 64))
+                                  probe_span=dl.probe_span(PTS, SPM, taps, 64),
+                                  device="cpu")
     state = jms.miso_init(0.45, 1.1)
-    port = miso_state_from_jax(jax.tree.map(np.asarray, state))
+    port = miso_state_from_jax(jax.tree.map(np.asarray, state), device="cpu")
     for window in _windows(3, taps, 40):
         state, want = jstep(state, jnp.asarray(window))
         port, got = step(port, torch.from_numpy(window.copy()))
@@ -212,7 +213,8 @@ def test_pipeline_matches_jax(case, capfd):
     assert ("using dense" in capfd.readouterr().err) == (profile == "realtime")
     assert (pipe.step.mimo_model is not None) == dense
     assert (pipe.step.fft_model is None) == dense
-    pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state))
+    pipe.state = awpu_state_from_jax(jax.tree.map(np.asarray, jpipe.state),
+                                     device="cpu")
     published = False
     for i in range(6):
         blk = plane_wave_block(pipe.points, [SRC], i * 256, 256, noise_std=0.02,

@@ -291,7 +291,8 @@ def test_bank_feeds_the_dense_heatmap():
                                ArrayConfig(), fir_bank=bank, device="cpu")
     src = (0.4, 1.0, 7800.0)  # in band 1
     block = plane_wave_block(points, [src], 0, 256, ArrayConfig(), noise_std=0.02)
-    window = rg.ring_window(rg.ring_push(rg.ring_init(64, 1024), torch.as_tensor(block)),
+    window = rg.ring_window(rg.ring_push(rg.ring_init(64, 1024, device="cpu"),
+                                       torch.as_tensor(block)),
                             256, dcfg.shift_range, taps)
     powers = mm.mimo_power(window, model).numpy()
 
