@@ -66,6 +66,7 @@ from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import fft_das as fd
 from beamforming_lk_tpu_torch.parallel.mesh import Layout
+from beamforming_lk_tpu_torch.utils import profiling
 
 
 class AwpuState(NamedTuple):
@@ -222,32 +223,37 @@ class AwpuStep(nn.Module):
 
     def forward(self, state: AwpuState, block, generator=None, draws=None):
         cfg, dsp = self.cfg, self.cfg.dsp
-        history = rg.ring_push(state.history, block)
-        window = rg.ring_window(history, dsp.block_size, dsp.shift_range,
-                                self.taps)
+        with profiling.span("awpu.ring"):
+            history = rg.ring_push(state.history, block)
+            window = rg.ring_window(history, dsp.block_size, dsp.shift_range,
+                                    self.taps)
         powers, prev_max = state.powers, state.prev_max
         if self.enable_mimo and state.block_index % cfg.mimo.heatmap_every == 0:
-            powers, peak = self._heatmap(window)
-            a = cfg.mimo.ema_alpha
-            prev_max = peak * a + (1.0 - a) * state.prev_max
+            with profiling.span("awpu.heatmap"):
+                powers, peak = self._heatmap(window)
+                a = cfg.mimo.ema_alpha
+                prev_max = peak * a + (1.0 - a) * state.prev_max
         swarm, miso = state.swarm, state.miso
         if self.swarm_step is not None:
-            swarm, targets, miso_p, miso_beam = self.swarm_step(
-                state.swarm, state.miso.particle, window, state.block_index,
-                generator=generator, draws=draws,
-            )
+            with profiling.span("awpu.swarm"):
+                swarm, targets, miso_p, miso_beam = self.swarm_step(
+                    state.swarm, state.miso.particle, window, state.block_index,
+                    generator=generator, draws=draws,
+                )
             miso = miso._replace(particle=miso_p)
         else:
             if self.tracker_step is not None:
-                swarm, targets = self.tracker_step(
-                    state.swarm, window, state.block_index,
-                    generator=generator, draws=draws,
-                )
+                with profiling.span("awpu.swarm"):
+                    swarm, targets = self.tracker_step(
+                        state.swarm, window, state.block_index,
+                        generator=generator, draws=draws,
+                    )
             else:
                 targets = _zero_targets((), cfg.tracker.n_trackers,
                                         block.device)
             if self.miso_step is not None:
-                miso, miso_beam = self.miso_step(state.miso, window)
+                with profiling.span("awpu.miso"):
+                    miso, miso_beam = self.miso_step(state.miso, window)
             else:
                 miso_beam = torch.zeros((dsp.block_size,), dtype=torch.float32,
                                         device=block.device)
@@ -280,16 +286,18 @@ class AwpuStep(nn.Module):
         h = state.history.shape[-1]
         # The whole replay behind the history; chunk i's windows are a view
         # of its first h + (i+1)*ck*T samples.
-        big = torch.cat(
-            [state.history, blocks.permute(1, 0, 2).reshape(c, m * t_len)],
-            dim=1,
-        )
+        with profiling.span("awpu.ring"):
+            big = torch.cat(
+                [state.history, blocks.permute(1, 0, 2).reshape(c, m * t_len)],
+                dim=1,
+            )
         swarm, miso_p, prev_max = state.swarm, state.miso.particle, state.prev_max
         bi, powers_last = state.block_index, state.powers
         outs = []
         for i in range(m // ck):
-            windows = rg.ring_windows(big[:, :h + (i + 1) * ck * t_len], t_len,
-                                      dsp.shift_range, self.taps, ck)
+            with profiling.span("awpu.ring"):
+                windows = rg.ring_windows(big[:, :h + (i + 1) * ck * t_len],
+                                          t_len, dsp.shift_range, self.taps, ck)
             if self.chunk_step is None:
                 targets_k = _zero_targets((ck,), cfg.tracker.n_trackers,
                                           blocks.device)
@@ -298,28 +306,32 @@ class AwpuStep(nn.Module):
             else:
                 d_i = None if draws is None else tuple(
                     d[i * ck:(i + 1) * ck] for d in draws)
-                swarm, targets_k, miso_p, beams = self.chunk_step(
-                    swarm, miso_p, windows, bi, generator=generator, draws=d_i,
-                )
+                with profiling.span("awpu.swarm"):
+                    swarm, targets_k, miso_p, beams = self.chunk_step(
+                        swarm, miso_p, windows, bi, generator=generator,
+                        draws=d_i,
+                    )
             if self.enable_mimo:
-                maps = self._maps(windows[::every])
-                emas = _ema_chain(maps.amax(dim=-1), prev_max,
-                                  cfg.mimo.ema_alpha)
-                powers_k = maps.repeat_interleave(every, dim=0)
-                prev_k = emas.repeat_interleave(every)
+                with profiling.span("awpu.heatmap"):
+                    maps = self._maps(windows[::every])
+                    emas = _ema_chain(maps.amax(dim=-1), prev_max,
+                                      cfg.mimo.ema_alpha)
+                    powers_k = maps.repeat_interleave(every, dim=0)
+                    prev_k = emas.repeat_interleave(every)
                 prev_max, powers_last = emas[-1], maps[-1]
             else:
                 powers_k = powers_last.expand(ck, -1)
                 prev_k = prev_max.expand(ck)
             outs.append(AwpuOutputs(powers_k, targets_k, beams, prev_k))
             bi += ck
-        stacked = AwpuOutputs(
-            powers=torch.cat([o.powers for o in outs]),
-            targets=tk.Targets(*(torch.cat(f) for f in
-                                 zip(*(o.targets for o in outs)))),
-            miso_beam=torch.cat([o.miso_beam for o in outs]),
-            prev_max=torch.cat([o.prev_max for o in outs]),
-        )
+        with profiling.span("awpu.outputs"):
+            stacked = AwpuOutputs(
+                powers=torch.cat([o.powers for o in outs]),
+                targets=tk.Targets(*(torch.cat(f) for f in
+                                     zip(*(o.targets for o in outs)))),
+                miso_beam=torch.cat([o.miso_beam for o in outs]),
+                prev_max=torch.cat([o.prev_max for o in outs]),
+            )
         new_state = AwpuState(
             history=big[:, -h:].contiguous(),
             swarm=swarm,
@@ -500,15 +512,18 @@ class AwpuPipeline:
         """Feed one [C, T] block (numpy, a tensor, or under a mesh the
         ``DTensor`` of its ``ch`` shards) through the estimator, if any,
         and the step."""
-        block, whole = self._blocks(block, 0)
-        with full_f32():
-            if self._mvdr_step is not None:
-                self._mvdr_state, self._mvdr_powers = self._mvdr_step(
-                    self._mvdr_state, whole)
-            self.state, self.last = self.step(
-                self.state, block, generator=self.generator, draws=draws
-            )
-        return self.last
+        with profiling.span("awpu.call"):
+            with profiling.span("awpu.intake"):
+                block, whole = self._blocks(block, 0)
+            with full_f32():
+                if self._mvdr_step is not None:
+                    with profiling.span("awpu.estimator"):
+                        self._mvdr_state, self._mvdr_powers = self._mvdr_step(
+                            self._mvdr_state, whole)
+                self.state, self.last = self.step(
+                    self.state, block, generator=self.generator, draws=draws
+                )
+            return self.last
 
     def process_blocks(self, blocks, draws=None) -> AwpuOutputs:
         """Drive M stacked blocks [M, C, T]; outputs stack on the leading
@@ -518,36 +533,41 @@ class AwpuPipeline:
         ``fused_chunk`` blocks); any other batch, and every batch under a
         mesh, runs block by block.  ``draws`` are :meth:`process_block`'s
         draws stacked over the M blocks."""
-        blocks, whole = self._blocks(blocks, 1)
-        with full_f32():
-            if self._mvdr_step is not None:
-                self._mvdr_state, powers = self._mvdr_step.scan(
-                    self._mvdr_state, whole)
-                self._mvdr_powers = powers[-1]
-            if self.step.takes_chunks(self.state, blocks.shape[0]):
-                self.state, stacked = self.step.scan_chunks(
-                    self.state, blocks, self.generator, draws
+        with profiling.span("awpu.call"):
+            with profiling.span("awpu.intake"):
+                blocks, whole = self._blocks(blocks, 1)
+            with full_f32():
+                if self._mvdr_step is not None:
+                    with profiling.span("awpu.estimator"):
+                        self._mvdr_state, powers = self._mvdr_step.scan(
+                            self._mvdr_state, whole)
+                        self._mvdr_powers = powers[-1]
+                if self.step.takes_chunks(self.state, blocks.shape[0]):
+                    self.state, stacked = self.step.scan_chunks(
+                        self.state, blocks, self.generator, draws
+                    )
+                    with profiling.span("awpu.outputs"):
+                        self.last = AwpuOutputs(
+                            powers=stacked.powers[-1],
+                            targets=tk.Targets(*(f[-1] for f in stacked.targets)),
+                            miso_beam=stacked.miso_beam[-1],
+                            prev_max=stacked.prev_max[-1],
+                        )
+                    return stacked
+                outs = []
+                for i, b in enumerate(blocks):
+                    self.state, self.last = self.step(
+                        self.state, b, generator=self.generator,
+                        draws=None if draws is None else tuple(d[i] for d in draws))
+                    outs.append(self.last)
+            with profiling.span("awpu.outputs"):
+                return AwpuOutputs(
+                    powers=torch.stack([o.powers for o in outs]),
+                    targets=tk.Targets(*(torch.stack(f) for f in
+                                         zip(*(o.targets for o in outs)))),
+                    miso_beam=torch.stack([o.miso_beam for o in outs]),
+                    prev_max=torch.stack([o.prev_max for o in outs]),
                 )
-                self.last = AwpuOutputs(
-                    powers=stacked.powers[-1],
-                    targets=tk.Targets(*(f[-1] for f in stacked.targets)),
-                    miso_beam=stacked.miso_beam[-1],
-                    prev_max=stacked.prev_max[-1],
-                )
-                return stacked
-            outs = []
-            for i, b in enumerate(blocks):
-                self.state, self.last = self.step(
-                    self.state, b, generator=self.generator,
-                    draws=None if draws is None else tuple(d[i] for d in draws))
-                outs.append(self.last)
-        return AwpuOutputs(
-            powers=torch.stack([o.powers for o in outs]),
-            targets=tk.Targets(*(torch.stack(f) for f in
-                                 zip(*(o.targets for o in outs)))),
-            miso_beam=torch.stack([o.miso_beam for o in outs]),
-            prev_max=torch.stack([o.prev_max for o in outs]),
-        )
 
     @property
     def miso_enabled(self) -> bool:

@@ -363,7 +363,9 @@ class ControlUnit:
 
         ``sources``: iterables of [C, T] blocks (synthetic generator, pcap
         replay, UDP receiver, native ingest — anything).  Returns the final
-        metrics summary, with the host stages' times under ``"stages"``.
+        metrics summary, with the host stages' times under ``"stages"`` and,
+        where the run rendered two frames or more, the rendered frame rate
+        (:attr:`fps`, an EMA) under ``"render_fps"``.
 
         ``play``: live playback through :class:`io.audio_out.AudioPlayer` —
         ``"miso"`` streams the steered beam, ``"raw"`` streams mic 0 of
@@ -533,6 +535,8 @@ class ControlUnit:
                 screen.close()
         summary = self.metrics.summary()
         summary["stages"] = self.stages.summary()
+        if self.stages.counts.get("render", 0) >= 2:
+            summary["render_fps"] = self.fps.fps
         if player_ref is not None:
             # Playback buffer health (bounded queue: played/dropped/depth),
             # same story as the ingest drop counters.

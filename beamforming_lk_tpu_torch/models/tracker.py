@@ -36,6 +36,7 @@ from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import geometry as gm
+from beamforming_lk_tpu_torch.utils import profiling
 
 
 class Particles(NamedTuple):
@@ -361,21 +362,25 @@ class _SwarmRows(nn.Module):
         """One block's swarm update through the configured backend ->
         (new state, Targets, listener or None, the swarm-chain kernel's
         MISO beam or None, raw compact window)."""
-        reference, win_bp, pw = self._prep(window)
-        seekers, jumps = self._draw(state, window.device, generator, draws)
+        with profiling.span("awpu.swarm.prep"):
+            reference, win_bp, pw = self._prep(window)
+        with profiling.span("awpu.swarm.draws"):
+            seekers, jumps = self._draw(state, window.device, generator, draws)
         beam = None
-        if not self.xla:
-            out, mean, beam = ctk.swarm_chain(
-                self.probes.xyz, win_bp, pw, self._rows(state, miso_particle, seekers),
-                jumps, reference, block_index=block_index, **self._kernel_kw(),
-            )
-            nt = self.cfg.n_trackers
-            tracking, start = out[6, :nt] > 0.5, out[7, :nt]   # post-prune
-        else:
-            out, tracking, start, mean = self._chain(
-                state, miso_particle, seekers, win_bp, reference, jumps,
-                block_index,
-            )
+        with profiling.span("awpu.swarm.run"):
+            if not self.xla:
+                out, mean, beam = ctk.swarm_chain(
+                    self.probes.xyz, win_bp, pw,
+                    self._rows(state, miso_particle, seekers), jumps,
+                    reference, block_index=block_index, **self._kernel_kw(),
+                )
+                nt = self.cfg.n_trackers
+                tracking, start = out[6, :nt] > 0.5, out[7, :nt]  # post-prune
+            else:
+                out, tracking, start, mean = self._chain(
+                    state, miso_particle, seekers, win_bp, reference, jumps,
+                    block_index,
+                )
         new_state, targets, miso_p = self._unpack(out, tracking, start, state,
                                                   mean, 1)
         return new_state, targets, miso_p, beam, pw
@@ -581,26 +586,30 @@ class FusedChunkStep(FusedSwarmStep):
         cfg = self.cfg
         device = windows.device
         kb, ns, nt = windows.shape[0], cfg.n_seekers, cfg.n_trackers
-        references, win_bp, pw = self._prep(windows)
+        with profiling.span("awpu.swarm.prep"):
+            references, win_bp, pw = self._prep(windows)
 
         # Per-block reset flags from the host counter; the draws as raw
         # uniforms in the per-block order, scaled once for the chunk (the
         # same elementwise ops as _random_directions and _swarm_jumps).
-        flags = [(state.reset_count + k) % cfg.seeker_reset_interval == 0
-                 for k in range(kb)]
-        if draws is None:
-            r_u, j_u = [], []
-            for fires in flags:
-                r_u.append(torch.rand((2, ns), generator=generator,
-                                      device=device) if fires else self.zeros_s2)
-                j_u.append(torch.rand((2, cfg.iterations, ns),
-                                      generator=generator, device=device))
-            r_u = torch.stack(r_u)
-            r_th, r_ph = r_u[:, 0] * cfg.theta_limit, r_u[:, 1] * (2.0 * math.pi)
-            j_u = (torch.stack(j_u) * 2.0 - 1.0) * (cfg.theta_limit / 2.0)
-            jts, jps = j_u[:, 0], j_u[:, 1]
-        else:
-            r_th, r_ph, jts, jps = (_on(d, device) for d in draws)
+        with profiling.span("awpu.swarm.draws"):
+            flags = [(state.reset_count + k) % cfg.seeker_reset_interval == 0
+                     for k in range(kb)]
+            if draws is None:
+                r_u, j_u = [], []
+                for fires in flags:
+                    r_u.append(torch.rand((2, ns), generator=generator,
+                                          device=device)
+                               if fires else self.zeros_s2)
+                    j_u.append(torch.rand((2, cfg.iterations, ns),
+                                          generator=generator, device=device))
+                r_u = torch.stack(r_u)
+                r_th = r_u[:, 0] * cfg.theta_limit
+                r_ph = r_u[:, 1] * (2.0 * math.pi)
+                j_u = (torch.stack(j_u) * 2.0 - 1.0) * (cfg.theta_limit / 2.0)
+                jts, jps = j_u[:, 0], j_u[:, 1]
+            else:
+                r_th, r_ph, jts, jps = (_on(d, device) for d in draws)
         flag_s = torch.stack(
             [self.ones_s if fires else self.zeros_sm[:ns] for fires in flags]
         )
@@ -613,11 +622,12 @@ class FusedChunkStep(FusedSwarmStep):
             torch.stack([jts, jps], dim=1),
         ], dim=3)
 
-        out, mean, beams = ctk.swarm_chunk(
-            self.probes.xyz, win_bp, pw, self._rows(state, miso_particle, state.seekers),
-            jumps, resets, references, block_index0=block_index0,
-            **self._kernel_kw(),
-        )
+        with profiling.span("awpu.swarm.run"):
+            out, mean, beams = ctk.swarm_chunk(
+                self.probes.xyz, win_bp, pw,
+                self._rows(state, miso_particle, state.seekers), jumps, resets,
+                references, block_index0=block_index0, **self._kernel_kw(),
+            )
         new_state, targets, miso_p = self._unpack(
             out, out[:, 6, :nt] > 0.5, out[:, 7, :nt], state, mean, kb)
         return new_state, targets, miso_p, beams

@@ -219,6 +219,20 @@ def test_run_summary_reports_audio_stats(tmp_path):
     assert audio["played"] == n
 
 
+def test_run_summary_reports_the_render_rate():
+    """``render_fps`` is the unit's frame meter where two frames or more
+    were rendered, and absent where fewer were."""
+    unit = _unit(enable_tracker=False, enable_miso=False)
+    blocks = _blocks_for(unit.pipelines[0].points, (0, 0, 0), (0.5, 0.3, 5.0), 3)
+    frames = []
+    summary = unit.run([blocks], n_blocks=3, render_every=1, on_frame=frames.append)
+    assert len(frames) == 3 and summary["stages"]["render"]["calls"] == 3
+    assert summary["render_fps"] == unit.fps.fps > 0.0
+    one = _unit(enable_tracker=False, enable_miso=False)
+    summary = one.run([blocks], n_blocks=1, render_every=1, on_frame=frames.append)
+    assert len(frames) == 4 and "render_fps" not in summary
+
+
 def test_logo_overlay_composited():
     logo = np.full((10, 20, 3), 200, np.uint8)
     unit = _unit(enable_tracker=False, enable_miso=False, logo=logo)

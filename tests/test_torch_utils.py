@@ -4,10 +4,12 @@ The copies of the JAX package's numpy modules (colormaps, upscale, blur,
 PNG, overlays, metrics, filters) are held bitwise against those modules on
 identical numpy inputs."""
 
+import itertools
 import json
 import os
 import struct
 import zlib
+from contextlib import nullcontext
 
 import numpy as np
 import pytest
@@ -324,13 +326,26 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_stage_timer_accumulates(monkeypatch):
-    clock = iter([0.0, 0.002, 0.010, 0.013, 0.020, 0.021])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    st = profiling.StageTimer()
-    for name in ("step", "render", "step"):
-        with st.stage(name):
-            pass
-    s = st.summary()
-    assert s["step"]["calls"] == 2 and s["render"]["calls"] == 1
-    assert s["step"]["mean_ms"] == pytest.approx(1.5)
-    assert s["render"]["total_s"] == pytest.approx(0.003)
+    """The totals, and under a profiler each stage as ``control.<name>``
+    with the same totals."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    clock = itertools.cycle([0.0, 0.002, 0.010, 0.013, 0.020, 0.021])
+    # The timer's clock alone: the profiler reads the time module's.
+    monkeypatch.setattr(profiling, "time",
+                        SimpleNamespace(perf_counter=lambda: next(clock)))
+    for profiled in (False, True):
+        st = profiling.StageTimer()
+        with (profile(activities=[ProfilerActivity.CPU]) if profiled
+              else nullcontext()) as prof:
+            for name in ("step", "render", "step"):
+                with st.stage(name):
+                    pass
+        s = st.summary()
+        assert s["step"]["calls"] == 2 and s["render"]["calls"] == 1
+        assert s["step"]["mean_ms"] == pytest.approx(1.5)
+        assert s["render"]["total_s"] == pytest.approx(0.003)
+    names = [e.name for e in prof.events() if e.name.startswith("control.")]
+    assert names == ["control.step", "control.render", "control.step"]
