@@ -12,7 +12,9 @@ Stages per 256-sample block: ring push and window; the heatmap on every
 non-lattice apertures); the tracker swarm, fused with the MISO listener
 at a real-time cadence, else the two as separate steps; and the published
 outputs.  The block counter and the heatmap decimation are host-side, so
-a block issues its device work without waiting on it.
+a block issues its device work without waiting on it.  On the card the
+separate steps on the XLA chain (the default profile) replay as one CUDA
+graph a block (``utils/graphs.py``): ~1030 launches become one.
 
 Replay (``AwpuPipeline.process_blocks``) runs ``fused_chunk`` blocks per
 launch of the chunk kernel, with their heatmaps at the decimated positions
@@ -51,7 +53,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from beamforming_lk_tpu_torch.device import full_f32, resolve_device
+from beamforming_lk_tpu_torch.device import f32_mode, full_f32, resolve_device
 from beamforming_lk_tpu_torch.io import checkpoint as ckpt
 from beamforming_lk_tpu_torch.io import ring as rg
 from beamforming_lk_tpu_torch.models import calibration as cal
@@ -63,10 +65,12 @@ from beamforming_lk_tpu_torch.models.mimo import (
     make_mimo_grid, make_mimo_model, mimo_power, render_heatmap,
 )
 from beamforming_lk_tpu_torch.ops import antenna as ant
+from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import fft_das as fd
 from beamforming_lk_tpu_torch.parallel.mesh import Layout
 from beamforming_lk_tpu_torch.utils import profiling
+from beamforming_lk_tpu_torch.utils.graphs import StepGraphs
 
 
 class AwpuState(NamedTuple):
@@ -176,6 +180,16 @@ class AwpuStep(nn.Module):
             if enable_miso:
                 self.miso_step = ms.make_miso_step_impl(
                     tc, dsp, arr, points, channel_mask, **step_kw)
+        # The unfused tracker and MISO steps on the XLA chain replay as a
+        # CUDA graph on the card (forward); a mesh with a ch axis keeps its
+        # collectives eager.
+        self.graphs = None
+        if (self.tracker_step is not None and self.miso_step is not None
+                and self.tracker_step.xla
+                and not (layout is not None and layout.has_ch)):
+            self.graphs = StepGraphs(self._tracker_and_miso,
+                                     counters=(ctk.monopulse_chain,),
+                                     span="awpu.swarm.replay")
         # Replay chunk: K-block kernel launches with the fused swarm on the
         # kernel backend, batched heatmaps without a swarm; the heatmap
         # decimation stays chunk-aligned.  Other pipelines replay block by
@@ -221,6 +235,27 @@ class AwpuStep(nn.Module):
         return powers, layout.dir.all_reduce(torch.max(powers),
                                              op=dist.ReduceOp.MAX)
 
+    def _tracker_and_miso(self, swarm, miso, window, stamp, generator):
+        """The unfused tracker and MISO steps of one block, as a graph
+        captures them: (swarm, Targets, miso, beam [T])."""
+        swarm, targets = self.tracker_step(swarm, window, stamp,
+                                           generator=generator)
+        miso, beam = self.miso_step(miso, window)
+        return swarm, targets, miso, beam
+
+    def _replay(self, state: AwpuState, window, generator):
+        """:meth:`_tracker_and_miso` of a block through :attr:`graphs`, one
+        graph a value of the host's seeker reset (whether the block draws
+        one) and of the TF32 switches; the host counter counts on."""
+        sw = state.swarm
+        swarm, targets, miso, beam = self.graphs(
+            (sw.reset_count % self.cfg.tracker.seeker_reset_interval == 0,
+             f32_mode()),
+            sw, state.miso, window,
+            tk.block_stamp(state.block_index, window), generator)
+        return (swarm._replace(reset_count=sw.reset_count + 1), targets, miso,
+                beam)
+
     def forward(self, state: AwpuState, block, generator=None, draws=None):
         cfg, dsp = self.cfg, self.cfg.dsp
         with profiling.span("awpu.ring"):
@@ -241,6 +276,10 @@ class AwpuStep(nn.Module):
                     generator=generator, draws=draws,
                 )
             miso = miso._replace(particle=miso_p)
+        elif self.graphs is not None and window.is_cuda and draws is None:
+            with profiling.span("awpu.swarm"):
+                swarm, targets, miso, miso_beam = self._replay(state, window,
+                                                               generator)
         else:
             if self.tracker_step is not None:
                 with profiling.span("awpu.swarm"):

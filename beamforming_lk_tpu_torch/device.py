@@ -34,6 +34,12 @@ def _tf32_switches():
     return [(matmul, "allow_tf32", False), (cudnn, "allow_tf32", False)]
 
 
+def f32_mode() -> tuple:
+    """The TF32 switches' current values: what a CUDA graph's f32 products
+    keep from the moment they were captured."""
+    return tuple(getattr(holder, name) for holder, name, _ in _tf32_switches())
+
+
 @contextlib.contextmanager
 def full_f32():
     """f32 matrix products and convolutions without TF32 inside the block,

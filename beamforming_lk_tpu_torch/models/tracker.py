@@ -75,6 +75,16 @@ class Targets(NamedTuple):
     valid: torch.Tensor         # bool
 
 
+def block_stamp(block_index, like: torch.Tensor) -> torch.Tensor:
+    """The promote stamp of a block: its host index as an f32 scalar on
+    ``like``'s device (``float(block_index)`` rounded to f32); a tensor is
+    the stamp already."""
+    if isinstance(block_index, torch.Tensor):
+        return block_index
+    return torch.full((), float(block_index), dtype=torch.float32,
+                      device=like.device)
+
+
 def _empty_particles(n: int, device=None) -> Particles:
     z = torch.zeros((n,), dtype=torch.float32, device=device)
     return Particles(z, z, z, z, z, z)
@@ -358,10 +368,12 @@ class _SwarmRows(nn.Module):
         return new_state, targets, miso_p
 
     def _update(self, state: SwarmState, miso_particle, window,
-                block_index: int, generator, draws):
+                block_index, generator, draws):
         """One block's swarm update through the configured backend ->
         (new state, Targets, listener or None, the swarm-chain kernel's
-        MISO beam or None, raw compact window)."""
+        MISO beam or None, raw compact window).  ``block_index`` is the
+        host counter, or on the XLA chain its f32 device scalar
+        (:func:`block_stamp`)."""
         with profiling.span("awpu.swarm.prep"):
             reference, win_bp, pw = self._prep(window)
         with profiling.span("awpu.swarm.draws"):
@@ -379,14 +391,14 @@ class _SwarmRows(nn.Module):
             else:
                 out, tracking, start, mean = self._chain(
                     state, miso_particle, seekers, win_bp, reference, jumps,
-                    block_index,
+                    block_stamp(block_index, window),
                 )
         new_state, targets, miso_p = self._unpack(out, tracking, start, state,
                                                   mean, 1)
         return new_state, targets, miso_p, beam, pw
 
     def _chain(self, state: SwarmState, miso_particle, seekers, win_bp,
-               reference, jumps, block_index: int):
+               reference, jumps, stamp):
         """``probe_kernel="xla"``: the JAX package's XLA iteration scan
         (models/tracker.py:491-580, and 846-950 for the fused step) with
         each iteration's sub-step chain as ONE launch of the monopulse-chain
@@ -397,8 +409,10 @@ class _SwarmRows(nn.Module):
         numbers, because each row's sub-step reads only its own state and
         the window, and the merge reads no seeker.  With the channels
         sharded the chain runs through :class:`ProbeChain`'s K4 launches
-        and all-reduces instead.  Returns (rows [6, P], post-prune tracking
-        [nt], start [nt], mean [])."""
+        and all-reduces instead.  A promoted tracker's start is ``stamp``,
+        the block index as an f32 device scalar, so that a CUDA graph of the
+        chain reads it as an operand.  Returns (rows [6, P], post-prune
+        tracking [nt], start [nt], mean [])."""
         cfg = self.cfg
         nt = cfg.n_trackers
         parts = self._parts(state, miso_particle, seekers)
@@ -442,7 +456,7 @@ class _SwarmRows(nn.Module):
             best = best.view(1)   # an index tensor: no host sync
             th = torch.where(promote, th.index_select(0, best), th)
             ph = torch.where(promote, ph.index_select(0, best), ph)
-            start = torch.where(promote_t, float(block_index), start)
+            start = torch.where(promote_t, stamp, start)
             tracking = tracking | promote_t
 
             mean = (torch.where(valid, rad, 0.0).sum()
@@ -469,14 +483,16 @@ class SwarmStep(_SwarmRows):
     (``"xla"``).
 
     ``forward(state, window, block_index, generator=None, draws=None) ->
-    (state, Targets)``; ``draws`` as :class:`FusedSwarmStep`'s."""
+    (state, Targets)``; ``draws`` as :class:`FusedSwarmStep`'s;
+    ``block_index`` the host counter, or on the XLA chain its
+    :func:`block_stamp`."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
                  probe_span=None, device="cuda", layout=None):
         super().__init__(cfg, dsp, array_cfg, points, channel_mask,
                          probe_span, 0, 0, device, layout)
 
-    def forward(self, state: SwarmState, window, block_index: int,
+    def forward(self, state: SwarmState, window, block_index,
                 generator: Optional[torch.Generator] = None, draws=None):
         new_state, targets, _, _, _ = self._update(
             state, None, window, block_index, generator, draws)

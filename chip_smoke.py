@@ -2007,7 +2007,9 @@ def _launch_ms(pipe, block) -> dict:
     every K0 and K4 launch: the device ms of each kernel in that block.  A
     spin kernel before each launch holds the device while the host
     enqueues the events and the launch, so the events time the kernel, not
-    the host's pace."""
+    the host's pace.  The block's draws are handed in, so its tracker and
+    MISO steps run eagerly through the timed wrappers rather than as the
+    graph replay the pipeline's own draws take."""
     import torch
 
     from beamforming_lk_tpu_torch.ops import cuda_das as cd
@@ -2027,11 +2029,16 @@ def _launch_ms(pipe, block) -> dict:
         call.launches = 0      # the wrapper counts on its module's name
         return call
 
+    tc = pipe.cfg.tracker
+    rng = np.random.default_rng(0)
+    draws = (rng.uniform(0, tc.theta_limit, tc.n_seekers),
+             rng.uniform(0, 2 * np.pi, tc.n_seekers),
+             *rng.uniform(-1, 1, (2, tc.iterations, tc.n_seekers)) * tc.theta_limit / 2)
     real = ctk.monopulse_chain, cd.das_beam
     ctk.monopulse_chain = timed("monopulse_chain", real[0])
     cd.das_beam = timed("das_beam", real[1])
     try:
-        pipe.process_block(block)
+        pipe.process_block(block, draws=draws)
     finally:
         ctk.monopulse_chain, cd.das_beam = real
     torch.cuda.synchronize()
