@@ -31,6 +31,21 @@ tensors).  After the window:
   trackers it hands on are the last block's, and its listener is the one
   the last block's beam is steered by.
 
+A configuration whose ``"pipeline"`` names an adaptive estimator (MVDR,
+MUSIC) turns the DAS map off: its map shows nothing, and ``map_gap`` is
+not computed.  The spectrum the operator sees is the estimator's, and
+``spectrum_gap`` judges it: the estimator's reference
+(:mod:`.reference.estimators`) follows the call's blocks from the
+program's estimator state before the call, and the largest gap of the
+program's spectrum after the call is taken as a share of the reference's
+peak.  The estimator carries a covariance across blocks, so, as with the
+swarm, the reference starts from the program's own state, and
+``estimator_state_gap`` judges the state the program hands on: its state
+after the call against the reference's, each tensor's largest gap over
+the reference's peak, a counter or a missing carry that differs reading
+1.  A state left unchanged (the covariance never advancing) reads no
+spectrum gap, since the reference starts from it, and is caught there.
+
 The control is the same reference computed one precision lower
 (:data:`.reference.precision.BELOW`), put in the program's place.
 """
@@ -52,6 +67,13 @@ NUMBERS = ("map_gap", "history_gap", "target_gap_rad", "beam_gap")
 STATE = "state_gap_rad"
 #: Compared where a call holds more than one block.
 CHUNK = "chunk_gap_rad"
+#: Compared in place of ``map_gap`` where the pipeline runs an estimator.
+SPECTRUM = "spectrum_gap"
+#: Compared beside it: the estimator's state after the call.
+ESTIMATOR_STATE = "estimator_state_gap"
+#: The precision the port's estimators state: f32 products without TF32
+#: (``models/mvdr.py``, ``models/music.py``); the control runs below it.
+ESTIMATOR_PRECISION = "float32"
 #: Samples after the beamformed block that the ring keeps unread.
 LOOKAHEAD = 8
 
@@ -137,8 +159,10 @@ def block_start(out, j: int, m: int):
 class Reference:
     """The reference of one run's configuration and stream."""
 
-    def __init__(self, cfg: dict, traffic, device, seed: int):
+    def __init__(self, cfg: dict, traffic, device, seed: int, estimator=None):
         self.lay = Layout(cfg, traffic.points)
+        #: The estimator's reference module (``follow``), or None for DAS.
+        self.estimator = estimator
         self.traffic = traffic
         self.device = device
         self.swarm_draws = SwarmDraws(seed, cfg["tracker"], device)
@@ -159,6 +183,27 @@ class Reference:
         lay = self.lay
         return self.traffic.samples(n_pushed * lay.tl, n_pushed * lay.tl + lay.h,
                                     lay.h, self.device)
+
+    def blocks(self, k0: int, m: int):
+        """Stream blocks ``k0 .. k0+m`` [m, C, T] in float64."""
+        lay = self.lay
+        start = lay.h + k0 * lay.tl
+        x = self.traffic.samples(start, start + m * lay.tl, lay.h, self.device)
+        return x.to(torch.float64).reshape(x.shape[0], m, lay.tl).permute(1, 0, 2)
+
+    def estimate(self, state, k0: int, m: int, control: bool):
+        """The estimator's (spectrum [D], state as compared) after stream
+        blocks ``k0 .. k0+m``, followed from the program's estimator
+        ``state`` before them."""
+        prec = BELOW[ESTIMATOR_PRECISION] if control else "float64"
+        spectrum, after = self.estimator.follow(state._asdict(), self.blocks(k0, m),
+                                                self.lay.points, self.lay.cfg, prec)
+        return spectrum, self.comparable(after)
+
+    def comparable(self, state: dict) -> dict:
+        """What of an estimator state is compared: the module's
+        ``comparable`` where it has one, else the state as it is."""
+        return getattr(self.estimator, "comparable", dict)(state)
 
     def heatmap(self, k: int, control: bool):
         w = self.window(k)
@@ -301,6 +346,20 @@ def _chunk_gap(old, s0, stamped: bool, th, ph, valid, start, r_th, r_ph, r_valid
     return gap
 
 
+def _estimator_state_gap(got: dict, want: dict) -> float:
+    """:data:`ESTIMATOR_STATE`: the largest over ``want``'s entries of a
+    tensor's gap over its peak; a host counter, or a carry present on one
+    side only, that differs reads 1."""
+    gap = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if torch.is_tensor(w) and torch.is_tensor(g):
+            gap = max(gap, _rel(g.to(w.device), w))
+        elif torch.is_tensor(w) or torch.is_tensor(g) or g != w:
+            gap = max(gap, 1.0)
+    return gap
+
+
 def _judged(cap, got, m: int):
     """Per block the judged side's (powers or None, theta, phi, valid,
     beam, start, radius, error): the program's outputs, or the control's."""
@@ -322,12 +381,19 @@ def _judged(cap, got, m: int):
 def compare(ref: Reference, captures, control: bool = False, notes=None) -> dict:
     """The numbers of :data:`NUMBERS`, with :data:`STATE` where a call holds
     one block and :data:`CHUNK` where one holds more, over ``captures`` (each a dict with ``k0``, ``m``,
-    ``before``, ``out`` and ``after``): the program against the reference,
-    or with ``control`` the control against it.  ``notes``, a dict, gets
-    for each call the ``state_gap_rad`` read, the largest over every
+    ``before``, ``out`` and ``after``, and with an estimator
+    ``estimator_before`` and ``estimator_after``, its state before and
+    after the call, and ``spectrum``, its spectrum after it): the program
+    against the reference, or with ``control`` the control against it.
+    With an estimator :data:`SPECTRUM` stands in for ``map_gap``, and
+    :data:`ESTIMATOR_STATE` is compared beside it.  ``notes``, a dict,
+    gets for each call the ``state_gap_rad`` read, the largest over every
     tracker slot, and the slot behind it."""
     lay = ref.lay
-    worst = dict.fromkeys(NUMBERS, 0.0)
+    estimator = ref.estimator is not None
+    worst = {n: 0.0 for n in NUMBERS if not (estimator and n == "map_gap")}
+    if estimator:
+        worst[SPECTRUM] = worst[ESTIMATOR_STATE] = 0.0
     if any(c["m"] == 1 for c in captures):
         worst[STATE] = 0.0
     if any(c["m"] > 1 for c in captures):
@@ -355,15 +421,27 @@ def compare(ref: Reference, captures, control: bool = False, notes=None) -> dict
                   for _, th, ph, valid, _, start, rad, err in judged]
         want, want_state = ref.follow(before, k0, m, control=False, forced=forced)
         bump("history_gap", float((hist.float() - ref.history(k0 + m)).abs().max()))
+        if estimator:
+            if control:
+                spectrum, est_after = ref.estimate(cap["estimator_before"], k0, m,
+                                                   control=True)
+            else:
+                spectrum = cap["spectrum"]
+                est_after = ref.comparable(cap["estimator_after"]._asdict())
+            r_spectrum, r_after = ref.estimate(cap["estimator_before"], k0, m,
+                                               control=False)
+            bump(SPECTRUM, _rel(spectrum.to(r_spectrum.device), r_spectrum))
+            bump(ESTIMATOR_STATE, _estimator_state_gap(est_after, r_after))
         for j in range(m):
             k = k0 + j
-            kmap = k - k % lay.every
-            if kmap not in maps:
-                maps[kmap] = ref.heatmap(kmap, control=False)
             powers, th, ph, valid, beam, start, _, _ = judged[j]
-            if control:
-                powers = ref.heatmap(kmap, control=True)
-            bump("map_gap", _rel(powers.to(maps[kmap].device), maps[kmap]))
+            if not estimator:
+                kmap = k - k % lay.every
+                if kmap not in maps:
+                    maps[kmap] = ref.heatmap(kmap, control=False)
+                if control:
+                    powers = ref.heatmap(kmap, control=True)
+                bump("map_gap", _rel(powers.to(maps[kmap].device), maps[kmap]))
             r_th, r_ph, r_valid, r_beam, r_start, _, _ = want[j]
             dev = r_th.device
             th, ph, valid, start = (x.to(dev) for x in (th, ph, valid, start))
@@ -385,9 +463,10 @@ def compare(ref: Reference, captures, control: bool = False, notes=None) -> dict
 
 
 def lock_report(ref: Reference, powers, targets, sources) -> str:
-    """Where the map peaks and how far the nearest published target lies
-    from each static source (``chip_smoke.py``'s ``check_map`` and
-    ``check_lock``, as a report, not a judgement)."""
+    """Where the map (an estimator's spectrum) peaks and how far the
+    nearest published target lies from each static source
+    (``chip_smoke.py``'s ``check_map`` and ``check_lock``, as a report, not
+    a judgement)."""
     m = ref.lay.cfg["mimo"]
     peak = divmod(int(torch.argmax(powers)), m["columns"])
     th, ph = (x.double().cpu() for x in targets[:2])

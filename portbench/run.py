@@ -5,9 +5,11 @@
 (or ``python3 -m portbench.run ...``) from the root of a checkout.  The
 cell, its configuration (``portbench/configs/<config>.json``), its traffic
 (``portbench/traffic/<traffic>.json``), its limits
-(``portbench/limits/<cell>.json``) and its metrics
-(``portbench/end_to_end/<name>.py``, ``portbench/metrics/<name>.py``) are
-found by the names in ``BENCHMARK.json``.
+(``portbench/limits/<cell>.json``), its metrics
+(``portbench/end_to_end/<name>.py``, ``portbench/metrics/<name>.py``) and,
+for a configuration whose ``"pipeline"`` names an adaptive estimator, the
+estimator's reference (``portbench/reference/estimators/<heatmap_mode>.py``)
+are found by the names in ``BENCHMARK.json``.
 
 A run builds ``AwpuPipeline`` from the configuration on the card, makes the
 traffic from ``--seed`` (:mod:`portbench.traffic`), warms up the cell's
@@ -49,6 +51,9 @@ TRACE_SECONDS = 2.0
 FAILED_LATENCY_S = 1e3
 #: A block later than this (s) is reported on stderr as stalled.
 STALL_S = 0.02
+#: The keys a configuration's optional ``"pipeline"`` object may give,
+#: passed to ``AwpuPipeline`` as keyword arguments.
+PIPELINE_KEYS = ("heatmap_mode", "music_solver", "music_sources", "mvdr_refresh")
 
 
 def forbidden_modules(modules=None) -> list:
@@ -64,6 +69,19 @@ def _load(path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def pipeline_options(cfg: dict) -> dict:
+    """The ``AwpuPipeline`` keywords of a configuration's ``"pipeline"``
+    object ({} without one).  An unknown key stops the run: a typo must not
+    run the DAS map in the estimator's place."""
+    options = cfg.get("pipeline", {})
+    unknown = sorted(set(options) - set(PIPELINE_KEYS))
+    if unknown:
+        raise SystemExit(f"configuration {cfg.get('name')!r}: unknown pipeline "
+                         f"key(s) {', '.join(map(repr, unknown))}; allowed: "
+                         f"{', '.join(PIPELINE_KEYS)}")
+    return dict(options)
 
 
 def load_cell(workload: str, root: Path = ROOT) -> dict:
@@ -84,9 +102,18 @@ def load_cell(workload: str, root: Path = ROOT) -> dict:
     per_layer = [m for m in manifest["per_layer"]
                  if applies(m) and m["moves"] in reported]
     limits_file = base / "limits" / f"{workload}.json"
+    cfg = json.loads((root / config["file"]).read_text())
+    mode = pipeline_options(cfg).get("heatmap_mode", "das")
+    estimator = None
+    if mode != "das":
+        estimator = base / "reference" / "estimators" / f"{mode}.py"
+        if not estimator.exists():
+            raise SystemExit(f"configuration {cfg.get('name')!r} names the estimator "
+                             f"{mode!r}, but its reference {estimator} is missing")
     return dict(
         cell=cell,
-        config=json.loads((root / config["file"]).read_text()),
+        config=cfg,
+        estimator=estimator,
         traffic=json.loads((base / "traffic" / f"{cell['traffic']}.json").read_text()),
         limits=(json.loads(limits_file.read_text())["limits"]
                 if limits_file.exists() else None),
@@ -152,9 +179,12 @@ def _wait_until(t: float) -> None:
 
 
 def drive(pipe, feed, spec: dict, k: int, seconds: float, device,
-          sampler: Reservoir = None, spans: bool = False) -> dict:
+          sampler: Reservoir = None, spans: bool = False,
+          estimator: bool = False) -> dict:
     """Drive the entry for ``seconds`` from stream block ``k`` as the
-    traffic's loop says.  Returns the host-clock record of the window."""
+    traffic's loop says.  Returns the host-clock record of the window.
+    With ``estimator`` (the configuration names one) each sampled call also
+    keeps the estimator's state before and after it and its spectrum."""
     import torch
 
     from portbench import trace as tr
@@ -172,6 +202,8 @@ def drive(pipe, feed, spec: dict, k: int, seconds: float, device,
             with span(tr.WAIT):
                 _wait_until(due)
         before = pipe.state
+        if estimator:
+            est_before = pipe._mvdr_state
         t_call = time.perf_counter()
         with span(tr.CALL):
             with span(tr.ENQUEUE):
@@ -188,7 +220,14 @@ def drive(pipe, feed, spec: dict, k: int, seconds: float, device,
             lateness.append(t_call - due)
         outs.append(host.numpy().copy())     # untracked by the collector
         if sampler is not None:
-            sampler.offer(j, dict(k0=k, m=m, before=before, out=out, after=pipe.state))
+            item = dict(k0=k, m=m, before=before, out=out, after=pipe.state)
+            if estimator:
+                # References, not copies: the estimator makes its state and
+                # its spectrum anew each call.
+                item.update(estimator_before=est_before,
+                            estimator_after=pipe._mvdr_state,
+                            spectrum=pipe._mvdr_powers)
+            sampler.offer(j, item)
         k += m
         j += 1
     host = np.concatenate(outs)
@@ -233,7 +272,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
     cfg, tspec = spec["config"], spec["traffic"]
     marks = [("imports", time.monotonic())]
     pipe = AwpuPipeline(port_config(cfg), channels=cfg["channels"],
-                        seed=seed % (2 ** 63), device=device)
+                        seed=seed % (2 ** 63), device=device,
+                        **pipeline_options(cfg))
     if pipeline_hook is not None:
         pipeline_hook(pipe)
     first_state = pipe.state
@@ -259,7 +299,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
         prev = t
     sampler = Reservoir(tspec["verify_calls"],
                         np.random.default_rng(seed % (2 ** 63)))
-    window = drive(pipe, feed, tspec, k, seconds, device, sampler=sampler)
+    window = drive(pipe, feed, tspec, k, seconds, device, sampler=sampler,
+                   estimator=spec["estimator"] is not None)
     window["setup_s"] = setup_s
     ctx = dict(window=window, config=cfg, traffic=tspec)
     result = {}
@@ -281,7 +322,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    ref = check.Reference(cfg, feed, device, seed)
+    ref = check.Reference(cfg, feed, device, seed, estimator=(
+        None if spec["estimator"] is None else _load(spec["estimator"])))
     notes = {}
     numbers = check.compare(ref, sampler.items, notes=notes)
     numbers["history_gap"] = max(numbers["history_gap"], start_gap(first_state))
@@ -299,7 +341,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
         result["breakdown"] = tr.breakdown()
     last = sampler.items[-1]
     shown_last = check.block_outputs(last["out"], 0, last["m"])
-    lock = check.lock_report(ref, shown_last[0], shown_last[1:4], tspec["sources"])
+    powers = last["spectrum"] if "spectrum" in last else shown_last[0]
+    lock = check.lock_report(ref, powers, shown_last[1:4], tspec["sources"])
     result = dict(correct=bool(correct) and window["failed"] == 0,
                   attempted=window["blocks"], failed=window["failed"],
                   metrics=metrics, device=dev, **result,

@@ -4,8 +4,8 @@ for the benchmark's own tests."""
 from portbench import run
 
 
-def small_cell(workload: str, channels: int = 64) -> dict:
-    spec = run.load_cell(workload)
+def small_cell(workload: str, channels: int = 64, root=run.ROOT) -> dict:
+    spec = run.load_cell(workload, root=root)
     t = spec["traffic"]
     spec["config"] = dict(spec["config"], channels=channels)
     spec["traffic"] = dict(t, pool_blocks=96, verify_calls=2, warmup_seconds=0.0,
@@ -13,4 +13,5 @@ def small_cell(workload: str, channels: int = 64) -> dict:
     return spec
 
 
-SECONDS = {"lk256-rt-live": 0.05, "lk256-rt-replay": 0.2, "lk64-default-stream": 0.1}
+SECONDS = {"lk256-rt-live": 0.05, "lk256-rt-replay": 0.2, "lk64-default-stream": 0.1,
+           "lk64-rt-live": 0.05}

@@ -95,27 +95,29 @@ def test_a_cell_added_as_files_alone(tmp_path):
     manifest = json.loads((tmp_path / "BENCHMARK.json").read_text())
     base = tmp_path / "portbench"
     cfg = json.loads((base / "configs" / "lk256-rt.json").read_text())
-    (base / "configs" / "lk64-rt.json").write_text(json.dumps(dict(
-        cfg, name="lk64-rt", channels=64)))
+    (base / "configs" / "lk128-rt.json").write_text(json.dumps(dict(
+        cfg, name="lk128-rt", channels=128)))
     traffic = json.loads((base / "traffic" / "wire.json").read_text())
     (base / "traffic" / "wire2x.json").write_text(json.dumps(dict(
         traffic, name="wire2x", rate_hz=2 * traffic["rate_hz"])))
     (base / "metrics" / "blocks_seen.py").write_text(
         "def read(ctx):\n    return float(ctx['window']['blocks'])\n")
-    manifest["configs"].append(dict(manifest["configs"][0], name="lk64-rt",
-                                    file="portbench/configs/lk64-rt.json"))
-    manifest["workloads"].append(dict(name="lk64-rt-wire2x", config="lk64-rt",
+    manifest["configs"].append(dict(manifest["configs"][0], name="lk128-rt",
+                                    file="portbench/configs/lk128-rt.json"))
+    manifest["workloads"].append(dict(name="lk128-rt-wire2x", config="lk128-rt",
                                       traffic="wire2x", chips=1, why="test"))
     for m in manifest["end_to_end"]:
-        if "workloads" in m and "lk256-rt-live" in m["workloads"]:
-            m["workloads"].append("lk64-rt-wire2x")
+        if "lk256-rt-live" in m.get("workloads", []):
+            m["workloads"].append("lk128-rt-wire2x")
     manifest["per_layer"].append(dict(name="blocks_seen", unit="blocks", better="higher",
                                       source="host_clock", layer="test",
                                       moves="latency_p99_ms",
-                                      workloads=["lk64-rt-wire2x"]))
+                                      workloads=["lk128-rt-wire2x"]))
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
-    spec = run.load_cell("lk64-rt-wire2x", root=tmp_path)
-    assert spec["config"]["channels"] == 64
+    spec = run.load_cell("lk128-rt-wire2x", root=tmp_path)
+    assert spec["config"]["channels"] == 128
+    assert spec["estimator"] is None
+    assert "setup_s" in [m["name"] for m, _ in spec["end_to_end"]]
     assert spec["traffic"]["rate_hz"] == 2 * traffic["rate_hz"]
     names = [m["name"] for m, _ in spec["per_layer"]]
     assert "blocks_seen" in names

@@ -10,7 +10,7 @@ from portbench.reference import geometry as geo
 from portbench.reference import heatmap as ref_map
 from portbench.tests.portbench_cells import SECONDS, small_cell
 
-CELLS = ("lk256-rt-live", "lk256-rt-replay", "lk64-default-stream")
+CELLS = tuple(SECONDS)
 
 
 def test_geometry_is_the_port_geometry():
@@ -42,12 +42,13 @@ def test_heatmap_matches_the_port_heatmap(name):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_reference_follows_the_port(workload):
-    result, shown = run.run_cell(small_cell(workload), 2 ** 31 + 11,
-                                 SECONDS[workload], False, device="cpu")
+    spec = small_cell(workload)
+    result, shown = run.run_cell(spec, 2 ** 31 + 11, SECONDS[workload], False,
+                                 device="cpu")
     numbers = {k: v["value"] for k, v in shown.items()}
     assert result["attempted"] > 0 and result["failed"] == 0
     assert numbers["history_gap"] == 0.0
-    bf16 = workload.startswith("lk256")
+    bf16 = spec["config"]["dsp"]["compute"] == "bfloat16"
     assert numbers["map_gap"] < (2e-2 if bf16 else 1e-5)
     assert numbers["target_gap_rad"] < (1e-3 if bf16 else 1e-5)
     assert numbers["beam_gap"] < (1e-2 if bf16 else 1e-4)
