@@ -18,8 +18,8 @@ Two solvers:
 
 - ``solver="subspace"`` (default): warm-started orthogonal iteration on the
   carried 2K-column signal basis, ``subspace_iters`` multiply + QR rounds a
-  block (8 on the first block), with the complement identity ``||En^T
-  a||^2 = ||a||^2 - ||Es^T a||^2``;
+  block (8 on the first block), with the noise-projection norm taken as
+  the residual ``||En^T a||^2 = ||a - Es Es^T a||^2``;
 - ``solver="eigh"``: the full ``torch.linalg.eigh`` of the embedding and the
   direct noise-projection norm (exact; it waits for the device once a call,
   as torch checks its result on the host).
@@ -40,6 +40,7 @@ from beamforming_lk_tpu_torch.config import ArrayConfig
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
 from beamforming_lk_tpu_torch.parallel.mesh import Axis, Layout
 from beamforming_lk_tpu_torch.models.mvdr import CovarianceStep, hermitian_embed
+from beamforming_lk_tpu_torch.utils.profiling import span
 
 _EPS_F32 = float(np.finfo(np.float32).eps)
 
@@ -91,8 +92,10 @@ class MusicStep(CovarianceStep):
         self.n_sources, self.solver = k, solver
         self.subspace_iters = int(subspace_iters)
         self.n_noise = 2 * (c - k)
-        # ||v_emb||^2 [F, D] of the complement identity, a constant.
-        self.register_buffer("v_norm2", (self.v_emb * self.v_emb).sum(-1))
+        #: Orthogonal-iteration rounds run since the step was built (a
+        #: host int: 8 a cold block, ``subspace_iters`` a warm one, 0 under
+        #: eigh).
+        self.qr_rounds = 0
 
     def init(self) -> MusicState:
         return music_init(self.n_bins, self.channels, self.n_sources,
@@ -102,34 +105,41 @@ class MusicStep(CovarianceStep):
         """``(basis, signal eigenvalues [F, 2K], noise floor [F], carried
         basis)`` of the embedding ``m`` [F, 2C, 2C]: the noise basis En
         [F, 2C, 2(C-K)] for eigh, the tracked signal basis Es [F, 2C, 2K]
-        with its Rayleigh quotients for subspace."""
-        if self.solver == "eigh":
-            vals, vecs = torch.linalg.eigh(m)             # ascending
-            return (vecs[..., :self.n_noise], vals[..., self.n_noise:],
-                    vals[..., :self.n_noise].mean(-1), state.basis)
-        q = state.basis
-        rounds = (self.subspace_iters if state.count > 0
-                  else max(self.subspace_iters, 8))
-        for _ in range(rounds):
-            q, _ = torch.linalg.qr(m @ q)
-        sig_vals = (q * (m @ q)).sum(1)                   # Rayleigh quotients
-        trace = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
-        return q, sig_vals, (trace - sig_vals.sum(-1)) / self.n_noise, q
+        with its Rayleigh quotients for subspace; the span
+        ``awpu.estimator.subspace``."""
+        with span("awpu.estimator.subspace"):
+            if self.solver == "eigh":
+                vals, vecs = torch.linalg.eigh(m)             # ascending
+                return (vecs[..., :self.n_noise], vals[..., self.n_noise:],
+                        vals[..., :self.n_noise].mean(-1), state.basis)
+            q = state.basis
+            rounds = (self.subspace_iters if state.count > 0
+                      else max(self.subspace_iters, 8))
+            for _ in range(rounds):
+                q, _ = torch.linalg.qr(m @ q)
+            self.qr_rounds += rounds
+            sig_vals = (q * (m @ q)).sum(1)                   # Rayleigh quotients
+            trace = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+            return q, sig_vals, (trace - sig_vals.sum(-1)) / self.n_noise, q
 
     def spectrum(self, basis, sig_vals, noise_mean):
-        """The pseudo-spectrum [D] from a bin's basis and eigenvalues."""
-        y = self.v_emb @ basis                            # [F, D, 2(C-K) | 2K]
-        if self.solver == "eigh":
-            denom, floor = (y * y).sum(-1), 1e-12
-        else:
-            # The complement subtraction cancels near a peak (||v||^2 ~ 2C),
-            # so it resolves no finer than ~2C eps.
-            denom = self.v_norm2 - (y * y).sum(-1)
-            floor = 2.0 * self.channels * _EPS_F32
-        sig = torch.clamp(sig_vals.sum(-1) - 2 * self.n_sources * noise_mean,
-                          min=0.0) * self.binw
-        w = sig / torch.clamp(self.reduce(sig.sum()), min=1e-30)
-        return self.reduce((w[:, None] / torch.clamp(denom, min=floor)).sum(0))
+        """The pseudo-spectrum [D] from a bin's basis and eigenvalues; the
+        span ``awpu.estimator.spectrum``."""
+        with span("awpu.estimator.spectrum"):
+            y = self.v_emb @ basis                        # [F, D, 2(C-K) | 2K]
+            if self.solver == "eigh":
+                denom, floor = (y * y).sum(-1), 1e-12
+            else:
+                # The residual itself: the complement ||v||^2 - ||Es^T v||^2
+                # cancels near a peak (||v||^2 = C), where at 256 mics it
+                # missed the float64 value by up to a tenth of the peak.
+                resid = torch.baddbmm(self.v_emb, y, basis.mT, alpha=-1.0)
+                denom = torch.linalg.vector_norm(resid, dim=-1).square()
+                floor = 2.0 * self.channels * _EPS_F32
+            sig = torch.clamp(sig_vals.sum(-1) - 2 * self.n_sources * noise_mean,
+                              min=0.0) * self.binw
+            w = sig / torch.clamp(self.reduce(sig.sum()), min=1e-30)
+            return self.reduce((w[:, None] / torch.clamp(denom, min=floor)).sum(0))
 
     def forward(self, state: MusicState, block):
         with full_f32():

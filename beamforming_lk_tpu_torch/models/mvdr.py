@@ -36,6 +36,7 @@ from beamforming_lk_tpu_torch.config import ArrayConfig
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
 from beamforming_lk_tpu_torch.parallel.mesh import Axis, Layout
 from beamforming_lk_tpu_torch.ops import antenna as ant
+from beamforming_lk_tpu_torch.utils.profiling import span
 
 
 class MvdrState(NamedTuple):
@@ -167,21 +168,23 @@ class CovarianceStep(nn.Module):
 
     def covariance(self, state, block):
         """The EMA covariance planes after ``block`` [C, T]; the first block
-        (``state.count == 0``) replaces the initial identity."""
-        xr, xi, n_frames = _stft_snapshots(block, self.dft, self.frame_size,
-                                           self.hop, self.mask)
-        # All four plane products as one batched product of [xr; xi].
-        c = xr.shape[1]
-        z = torch.cat([xr, xi], dim=1)                 # [F, 2C, M]
-        g = z @ z.mT
-        r_re = (g[:, :c, :c] + g[:, c:, c:]) / n_frames
-        r_im = (g[:, c:, :c] - g[:, :c, c:]) / n_frames
-        # The weights as the JAX package rounds them: f32 alpha, 1 - alpha
-        # in f32.
-        alpha = self.alpha if state.count > 0 else 1.0
-        keep = float(np.float32(1.0) - np.float32(alpha))
-        return (keep * state.cov_re + alpha * r_re,
-                keep * state.cov_im + alpha * r_im)
+        (``state.count == 0``) replaces the initial identity; the span
+        ``awpu.estimator.covariance`` in a profiler's trace."""
+        with span("awpu.estimator.covariance"):
+            xr, xi, n_frames = _stft_snapshots(block, self.dft, self.frame_size,
+                                               self.hop, self.mask)
+            # All four plane products as one batched product of [xr; xi].
+            c = xr.shape[1]
+            z = torch.cat([xr, xi], dim=1)                 # [F, 2C, M]
+            g = z @ z.mT
+            r_re = (g[:, :c, :c] + g[:, c:, c:]) / n_frames
+            r_im = (g[:, c:, :c] - g[:, :c, c:]) / n_frames
+            # The weights as the JAX package rounds them: f32 alpha, 1 - alpha
+            # in f32.
+            alpha = self.alpha if state.count > 0 else 1.0
+            keep = float(np.float32(1.0) - np.float32(alpha))
+            return (keep * state.cov_re + alpha * r_re,
+                    keep * state.cov_im + alpha * r_im)
 
     def scan(self, state, blocks, n: Optional[int] = None):
         """``(state, powers [n, D])`` of ``n`` consecutive blocks of

@@ -20,6 +20,13 @@ PROFILES = {
     "realtime": (realtime(Config()), {}),
     "default": (Config(), {}),
     "mvdr": (realtime(Config()), {"heatmap_mode": "mvdr"}),
+    "music": (realtime(Config()), {"heatmap_mode": "music"}),
+}
+#: The spans inside the estimator, each once a block.
+ESTIMATOR_STAGES = {
+    "mvdr": ("awpu.estimator.covariance",),
+    "music": ("awpu.estimator.covariance", "awpu.estimator.subspace",
+              "awpu.estimator.spectrum"),
 }
 
 
@@ -112,6 +119,20 @@ def test_estimator_opens_in_the_call():
     inner = _inside(spans, call)
     assert inner.count("awpu.estimator") == 1
     assert "awpu.heatmap" not in inner                  # the DAS map is off
+
+
+@pytest.mark.parametrize("profile_name", sorted(ESTIMATOR_STAGES))
+def test_estimator_opens_its_stages_inside_its_span(profile_name):
+    pipe = _pipe(profile_name)
+    blocks = _blocks(pipe, 2)
+    spans = _profiled(lambda: [pipe.process_block(b) for b in blocks])
+    estimators = [s for s in spans if s[0] == "awpu.estimator"]
+    assert len(estimators) == 2
+    for outer in estimators:
+        inner = _inside(spans, outer)
+        assert sorted(inner) == sorted(ESTIMATOR_STAGES[profile_name]), inner
+    stages = [s for s in spans if s[0].startswith("awpu.estimator.")]
+    assert len(stages) == 2 * len(ESTIMATOR_STAGES[profile_name])
 
 
 @pytest.mark.parametrize("profile_name", sorted(PROFILES))
