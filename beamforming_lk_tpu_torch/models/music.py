@@ -26,7 +26,9 @@ Two solvers:
 
 Plain torch on every device (the JAX package has no Pallas kernel here),
 without TF32 (:func:`device.full_f32`).  The cold-start rounds are chosen
-on the host's block count, so the subspace step waits on nothing.
+on the host's block count, so the subspace step waits on nothing, and on
+the card the whole step (covariance EMA, rounds, spectrum) replays as one
+CUDA graph a block (:meth:`MusicStep.forward`, ``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from beamforming_lk_tpu_torch.config import ArrayConfig
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
 from beamforming_lk_tpu_torch.parallel.mesh import Axis, Layout
 from beamforming_lk_tpu_torch.models.mvdr import CovarianceStep, hermitian_embed
+from beamforming_lk_tpu_torch.utils.graphs import StepGraphs
 from beamforming_lk_tpu_torch.utils.profiling import span
 
 _EPS_F32 = float(np.finfo(np.float32).eps)
@@ -74,7 +77,15 @@ class MusicStep(CovarianceStep):
     """The per-block MUSIC update, ``forward(state, block [C, T]) ->
     (state, pseudo [D])``; K = ``n_sources`` is the assumed model order
     (the noise subspace spans the 2(C-K) weakest eigenvectors of the
-    embedding)."""
+    embedding).
+
+    The subspace solver's step on one device reads no host value but
+    whether the block is cold, so on the card it replays as one CUDA graph
+    a key (:attr:`graphs`, :meth:`_replay`): the cold block and the first
+    warm one run eagerly, the second warm one captures, and every later
+    one replays.  ``eigh`` (torch checks its result on the host) and a
+    bin-sharded step (its all-reduces) stay eager; set ``step.graphs =
+    None`` for the eager path on the card."""
 
     def __init__(self, points, theta, phi, array_cfg=ArrayConfig(),
                  n_sources: int = 3, frame_size: int = 64, hop: int = 32,
@@ -94,8 +105,12 @@ class MusicStep(CovarianceStep):
         self.n_noise = 2 * (c - k)
         #: Orthogonal-iteration rounds run since the step was built (a
         #: host int: 8 a cold block, ``subspace_iters`` a warm one, 0 under
-        #: eigh).
+        #: eigh), replays included.
         self.qr_rounds = 0
+        self.graphs = None
+        if solver == "subspace" and shard is None:
+            self.graphs = StepGraphs(self._step, counters=(),
+                                     span="awpu.estimator.replay")
 
     def init(self) -> MusicState:
         return music_init(self.n_bins, self.channels, self.n_sources,
@@ -113,8 +128,7 @@ class MusicStep(CovarianceStep):
                 return (vecs[..., :self.n_noise], vals[..., self.n_noise:],
                         vals[..., :self.n_noise].mean(-1), state.basis)
             q = state.basis
-            rounds = (self.subspace_iters if state.count > 0
-                      else max(self.subspace_iters, 8))
+            rounds = self._rounds(state.count == 0)
             for _ in range(rounds):
                 q, _ = torch.linalg.qr(m @ q)
             self.qr_rounds += rounds
@@ -141,7 +155,27 @@ class MusicStep(CovarianceStep):
             w = sig / torch.clamp(self.reduce(sig.sum()), min=1e-30)
             return self.reduce((w[:, None] / torch.clamp(denom, min=floor)).sum(0))
 
+    def _rounds(self, cold: bool) -> int:
+        """Orthogonal-iteration rounds of a cold or a warm block."""
+        return max(self.subspace_iters, 8) if cold else self.subspace_iters
+
+    def _replay(self, state: MusicState, block):
+        """:meth:`_step` through :attr:`graphs`, one graph a value of
+        whether the block is cold; the host count and :attr:`qr_rounds`
+        count on."""
+        cold = state.count == 0
+        rounds = self.qr_rounds
+        new, pseudo = self.graphs(cold, state, block)
+        self.qr_rounds = rounds + self._rounds(cold)
+        return new._replace(count=state.count + 1), pseudo
+
     def forward(self, state: MusicState, block):
+        if self.graphs is not None and block.is_cuda:
+            return self._replay(state, block)
+        return self._step(state, block)
+
+    def _step(self, state: MusicState, block):
+        """The eager step of :meth:`forward`."""
         with full_f32():
             cov_re, cov_im = self.covariance(state, block)
             basis, sig_vals, noise_mean, carried = self.subspaces(
