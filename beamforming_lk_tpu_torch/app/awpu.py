@@ -14,7 +14,7 @@ at a real-time cadence, else the two as separate steps; and the published
 outputs.  The block counter and the heatmap decimation are host-side, so
 a block issues its device work without waiting on it.  On the card the
 separate steps on the XLA chain (the default profile) replay as one CUDA
-graph a block (``utils/graphs.py``): ~1030 launches become one.
+graph a block (``models/miso.py``): ~1030 launches become one.
 
 Replay (``AwpuPipeline.process_blocks``) runs ``fused_chunk`` blocks per
 launch of the chunk kernel, with their heatmaps at the decimated positions
@@ -44,6 +44,7 @@ block by block.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 from typing import NamedTuple, Optional
 
@@ -52,8 +53,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
+from torch.utils import _pytree as pytree
 
-from beamforming_lk_tpu_torch.device import f32_mode, full_f32, resolve_device
+from beamforming_lk_tpu_torch.device import full_f32, resolve_device
 from beamforming_lk_tpu_torch.io import checkpoint as ckpt
 from beamforming_lk_tpu_torch.io import ring as rg
 from beamforming_lk_tpu_torch.models import calibration as cal
@@ -65,12 +67,10 @@ from beamforming_lk_tpu_torch.models.mimo import (
     make_mimo_grid, make_mimo_model, mimo_power, render_heatmap,
 )
 from beamforming_lk_tpu_torch.ops import antenna as ant
-from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import fft_das as fd
 from beamforming_lk_tpu_torch.parallel.mesh import Layout
 from beamforming_lk_tpu_torch.utils import profiling
-from beamforming_lk_tpu_torch.utils.graphs import StepGraphs
 
 
 class AwpuState(NamedTuple):
@@ -102,10 +102,10 @@ def _ema_chain(maxes, prev_max, alpha: float):
     return contrib + prev_max * decay[1:]
 
 
-def _zero_targets(lead, n: int, device) -> tk.Targets:
-    z = torch.zeros(lead + (n,), dtype=torch.float32, device=device)
-    return tk.Targets(z, z, z, z, z,
-                      torch.zeros(lead + (n,), dtype=torch.bool, device=device))
+def _join(how, *outs: AwpuOutputs) -> AwpuOutputs:
+    """``how`` of each tensor's list across ``outs`` (the targets'
+    included): a stack, a cat, or the last block of one stack."""
+    return pytree.tree_map(lambda *xs: how(xs), *outs)
 
 
 class AwpuStep(nn.Module):
@@ -164,32 +164,17 @@ class AwpuStep(nn.Module):
                              dsp.shift_range)
         # Tracker and MISO both on at a real-time cadence share one swarm
         # update (the JAX package's use_fused gate); otherwise each runs
-        # its own step.
+        # its own step, or with both off neither.
         fused = (enable_tracker and enable_miso and tc.iterations <= 4
                  and tc.iterations * tc.tracker_steps >= 3)
-        self.swarm_step = self.tracker_step = self.miso_step = None
-        self.chunk_step = None
+        self.swarm_step = self.unfused_step = self.chunk_step = None
+        args = (tc, dsp, arr, points, channel_mask)
         step_kw = dict(probe_span=span, device=device, layout=layout)
         if fused:
-            self.swarm_step = tk.make_fused_step_impl(
-                tc, dsp, arr, points, channel_mask, **step_kw)
+            self.swarm_step = tk.make_fused_step_impl(*args, **step_kw)
         else:
-            if enable_tracker:
-                self.tracker_step = tk.make_swarm_step_impl(
-                    tc, dsp, arr, points, channel_mask, **step_kw)
-            if enable_miso:
-                self.miso_step = ms.make_miso_step_impl(
-                    tc, dsp, arr, points, channel_mask, **step_kw)
-        # The unfused tracker and MISO steps on the XLA chain replay as a
-        # CUDA graph on the card (forward); a mesh with a ch axis keeps its
-        # collectives eager.
-        self.graphs = None
-        if (self.tracker_step is not None and self.miso_step is not None
-                and self.tracker_step.xla
-                and not (layout is not None and layout.has_ch)):
-            self.graphs = StepGraphs(self._tracker_and_miso,
-                                     counters=(ctk.monopulse_chain,),
-                                     span="awpu.swarm.replay")
+            self.unfused_step = ms.UnfusedSwarmStep(
+                *args, enable_tracker, enable_miso, **step_kw)
         # Replay chunk: K-block kernel launches with the fused swarm on the
         # kernel backend, batched heatmaps without a swarm; the heatmap
         # decimation stays chunk-aligned.  Other pipelines replay block by
@@ -204,9 +189,8 @@ class AwpuStep(nn.Module):
             chunk = cfg.mimo.heatmap_chunk if heatmap_only and enable_mimo else 0
         self.chunk = chunk if chunk > 1 and chunk % self.every == 0 else 0
         if self.chunk and fused:
-            self.chunk_step = tk.make_fused_chunk_impl(
-                tc, dsp, arr, points, channel_mask, probe_span=span,
-                device=device)
+            self.chunk_step = tk.make_fused_chunk_impl(*args, probe_span=span,
+                                                       device=device)
 
     def _maps(self, windows):
         """Heatmap powers [D] of a window [C, T+S], or [K, D] of a stack
@@ -235,27 +219,6 @@ class AwpuStep(nn.Module):
         return powers, layout.dir.all_reduce(torch.max(powers),
                                              op=dist.ReduceOp.MAX)
 
-    def _tracker_and_miso(self, swarm, miso, window, stamp, generator):
-        """The unfused tracker and MISO steps of one block, as a graph
-        captures them: (swarm, Targets, miso, beam [T])."""
-        swarm, targets = self.tracker_step(swarm, window, stamp,
-                                           generator=generator)
-        miso, beam = self.miso_step(miso, window)
-        return swarm, targets, miso, beam
-
-    def _replay(self, state: AwpuState, window, generator):
-        """:meth:`_tracker_and_miso` of a block through :attr:`graphs`, one
-        graph a value of the host's seeker reset (whether the block draws
-        one) and of the TF32 switches; the host counter counts on."""
-        sw = state.swarm
-        swarm, targets, miso, beam = self.graphs(
-            (sw.reset_count % self.cfg.tracker.seeker_reset_interval == 0,
-             f32_mode()),
-            sw, state.miso, window,
-            tk.block_stamp(state.block_index, window), generator)
-        return (swarm._replace(reset_count=sw.reset_count + 1), targets, miso,
-                beam)
-
     def forward(self, state: AwpuState, block, generator=None, draws=None):
         cfg, dsp = self.cfg, self.cfg.dsp
         with profiling.span("awpu.ring"):
@@ -268,34 +231,18 @@ class AwpuStep(nn.Module):
                 powers, peak = self._heatmap(window)
                 a = cfg.mimo.ema_alpha
                 prev_max = peak * a + (1.0 - a) * state.prev_max
-        swarm, miso = state.swarm, state.miso
         if self.swarm_step is not None:
             with profiling.span("awpu.swarm"):
                 swarm, targets, miso_p, miso_beam = self.swarm_step(
                     state.swarm, state.miso.particle, window, state.block_index,
                     generator=generator, draws=draws,
                 )
-            miso = miso._replace(particle=miso_p)
-        elif self.graphs is not None and window.is_cuda and draws is None:
-            with profiling.span("awpu.swarm"):
-                swarm, targets, miso, miso_beam = self._replay(state, window,
-                                                               generator)
+            miso = state.miso._replace(particle=miso_p)
         else:
-            if self.tracker_step is not None:
-                with profiling.span("awpu.swarm"):
-                    swarm, targets = self.tracker_step(
-                        state.swarm, window, state.block_index,
-                        generator=generator, draws=draws,
-                    )
-            else:
-                targets = _zero_targets((), cfg.tracker.n_trackers,
-                                        block.device)
-            if self.miso_step is not None:
-                with profiling.span("awpu.miso"):
-                    miso, miso_beam = self.miso_step(state.miso, window)
-            else:
-                miso_beam = torch.zeros((dsp.block_size,), dtype=torch.float32,
-                                        device=block.device)
+            swarm, targets, miso, miso_beam = self.unfused_step(
+                state.swarm, state.miso, window, state.block_index,
+                generator=generator, draws=draws,
+            )
         new_state = AwpuState(
             history=history,
             swarm=swarm,
@@ -337,11 +284,9 @@ class AwpuStep(nn.Module):
             with profiling.span("awpu.ring"):
                 windows = rg.ring_windows(big[:, :h + (i + 1) * ck * t_len],
                                           t_len, dsp.shift_range, self.taps, ck)
-            if self.chunk_step is None:
-                targets_k = _zero_targets((ck,), cfg.tracker.n_trackers,
-                                          blocks.device)
-                beams = torch.zeros((ck, t_len), dtype=torch.float32,
-                                    device=blocks.device)
+            if self.chunk_step is None:     # heatmap-only: zero outputs
+                _, targets_k, _, beams = self.unfused_step(swarm, state.miso,
+                                                           windows, bi)
             else:
                 d_i = None if draws is None else tuple(
                     d[i * ck:(i + 1) * ck] for d in draws)
@@ -364,13 +309,7 @@ class AwpuStep(nn.Module):
             outs.append(AwpuOutputs(powers_k, targets_k, beams, prev_k))
             bi += ck
         with profiling.span("awpu.outputs"):
-            stacked = AwpuOutputs(
-                powers=torch.cat([o.powers for o in outs]),
-                targets=tk.Targets(*(torch.cat(f) for f in
-                                     zip(*(o.targets for o in outs)))),
-                miso_beam=torch.cat([o.miso_beam for o in outs]),
-                prev_max=torch.cat([o.prev_max for o in outs]),
-            )
+            stacked = _join(torch.cat, *outs)
         new_state = AwpuState(
             history=big[:, -h:].contiguous(),
             swarm=swarm,
@@ -547,21 +486,28 @@ class AwpuPipeline:
                 local = whole.narrow(dim, part.start, part.stop - part.start)
         return local, whole
 
+    @contextlib.contextmanager
+    def _call(self, blocks, dim: int):
+        """The entries' prologue in ``awpu.call``, without TF32: the intake
+        (:meth:`_blocks`), the estimator's step or scan; yields the local part."""
+        with profiling.span("awpu.call"):
+            with profiling.span("awpu.intake"):
+                local, whole = self._blocks(blocks, dim)
+            with full_f32():
+                if self._mvdr_step is not None:
+                    with profiling.span("awpu.estimator"):
+                        run = self._mvdr_step.scan if dim else self._mvdr_step
+                        self._mvdr_state, powers = run(self._mvdr_state, whole)
+                        self._mvdr_powers = powers[-1] if dim else powers
+                yield local
+
     def process_block(self, block, draws=None) -> AwpuOutputs:
         """Feed one [C, T] block (numpy, a tensor, or under a mesh the
         ``DTensor`` of its ``ch`` shards) through the estimator, if any,
         and the step."""
-        with profiling.span("awpu.call"):
-            with profiling.span("awpu.intake"):
-                block, whole = self._blocks(block, 0)
-            with full_f32():
-                if self._mvdr_step is not None:
-                    with profiling.span("awpu.estimator"):
-                        self._mvdr_state, self._mvdr_powers = self._mvdr_step(
-                            self._mvdr_state, whole)
-                self.state, self.last = self.step(
-                    self.state, block, generator=self.generator, draws=draws
-                )
+        with self._call(block, 0) as block:
+            self.state, self.last = self.step(
+                self.state, block, generator=self.generator, draws=draws)
             return self.last
 
     def process_blocks(self, blocks, draws=None) -> AwpuOutputs:
@@ -572,41 +518,21 @@ class AwpuPipeline:
         ``fused_chunk`` blocks); any other batch, and every batch under a
         mesh, runs block by block.  ``draws`` are :meth:`process_block`'s
         draws stacked over the M blocks."""
-        with profiling.span("awpu.call"):
-            with profiling.span("awpu.intake"):
-                blocks, whole = self._blocks(blocks, 1)
-            with full_f32():
-                if self._mvdr_step is not None:
-                    with profiling.span("awpu.estimator"):
-                        self._mvdr_state, powers = self._mvdr_step.scan(
-                            self._mvdr_state, whole)
-                        self._mvdr_powers = powers[-1]
-                if self.step.takes_chunks(self.state, blocks.shape[0]):
-                    self.state, stacked = self.step.scan_chunks(
-                        self.state, blocks, self.generator, draws
-                    )
-                    with profiling.span("awpu.outputs"):
-                        self.last = AwpuOutputs(
-                            powers=stacked.powers[-1],
-                            targets=tk.Targets(*(f[-1] for f in stacked.targets)),
-                            miso_beam=stacked.miso_beam[-1],
-                            prev_max=stacked.prev_max[-1],
-                        )
-                    return stacked
-                outs = []
-                for i, b in enumerate(blocks):
-                    self.state, self.last = self.step(
-                        self.state, b, generator=self.generator,
-                        draws=None if draws is None else tuple(d[i] for d in draws))
-                    outs.append(self.last)
+        with self._call(blocks, 1) as blocks:
+            if self.step.takes_chunks(self.state, blocks.shape[0]):
+                self.state, stacked = self.step.scan_chunks(
+                    self.state, blocks, self.generator, draws)
+                with profiling.span("awpu.outputs"):
+                    self.last = _join(lambda xs: xs[0][-1], stacked)
+                return stacked
+            outs = []
+            for i, b in enumerate(blocks):
+                self.state, self.last = self.step(
+                    self.state, b, generator=self.generator,
+                    draws=None if draws is None else tuple(d[i] for d in draws))
+                outs.append(self.last)
             with profiling.span("awpu.outputs"):
-                return AwpuOutputs(
-                    powers=torch.stack([o.powers for o in outs]),
-                    targets=tk.Targets(*(torch.stack(f) for f in
-                                         zip(*(o.targets for o in outs)))),
-                    miso_beam=torch.stack([o.miso_beam for o in outs]),
-                    prev_max=torch.stack([o.prev_max for o in outs]),
-                )
+                return _join(torch.stack, *outs)
 
     @property
     def miso_enabled(self) -> bool:

@@ -299,13 +299,17 @@ class _SwarmRows(nn.Module):
             reference = shard.all_reduce(reference * float(shard.index == 0))
         return (reference,) + self.probes.windows(window)
 
+    def reset_fires(self, reset_count: int) -> bool:
+        """Whether the block at host counter ``reset_count`` redraws the seekers."""
+        return reset_count % self.cfg.seeker_reset_interval == 0
+
     def _draw(self, state: SwarmState, device, generator, draws):
         """The seekers after this block's reset (every
         ``seeker_reset_interval`` blocks, host counter) and the jump table
         [2, I, P] (zero on non-seeker rows)."""
         cfg = self.cfg
         seekers = state.seekers
-        reset = state.reset_count % cfg.seeker_reset_interval == 0
+        reset = self.reset_fires(state.reset_count)
         if draws is None:
             if reset:
                 r_th, r_ph = _random_directions(
@@ -609,8 +613,7 @@ class FusedChunkStep(FusedSwarmStep):
         # uniforms in the per-block order, scaled once for the chunk (the
         # same elementwise ops as _random_directions and _swarm_jumps).
         with profiling.span("awpu.swarm.draws"):
-            flags = [(state.reset_count + k) % cfg.seeker_reset_interval == 0
-                     for k in range(kb)]
+            flags = [self.reset_fires(state.reset_count + k) for k in range(kb)]
             if draws is None:
                 r_u, j_u = [], []
                 for fires in flags:

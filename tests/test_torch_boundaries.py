@@ -198,6 +198,8 @@ _ENTRY_POINTS = {
     "make_miso_step_impl": (ms.make_miso_step_impl,
                             lambda **kw: ms.make_miso_step_impl(*_STEP_ARGS, **kw)),
     "MisoStep": (ms.MisoStep, lambda **kw: ms.MisoStep(*_STEP_ARGS, **kw)),
+    "UnfusedSwarmStep": (ms.UnfusedSwarmStep,
+                         lambda **kw: ms.UnfusedSwarmStep(*_STEP_ARGS, **kw)),
     "swarm_init": (tk.swarm_init, lambda **kw: tk.swarm_init(
         SMALL.tracker, torch.Generator(), **kw)),
     "make_swarm_step_impl": (tk.make_swarm_step_impl,

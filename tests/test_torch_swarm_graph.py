@@ -1,5 +1,5 @@
 """The default profile's tracker and MISO steps replayed as a CUDA graph
-(``utils/graphs.py``, ``AwpuStep.forward``):
+(``utils/graphs.py``, ``models.miso.UnfusedSwarmStep``):
 
 - on the CPU: which steps the gate builds the graphs for, that the CPU,
   ``draws=`` and a mesh with a ``ch`` axis stay eager (nothing captured,
@@ -59,8 +59,14 @@ def _blocks(pipe, n: int, start: int = 0, device="cpu"):
         device=device) for i in range(n)]
 
 
+def _graphs(pipe):
+    """The graphs of the pipeline's unfused swarm step (None without one)."""
+    unfused = pipe.step.unfused_step
+    return None if unfused is None else unfused.graphs
+
+
 def _counts(pipe):
-    g = pipe.step.graphs
+    g = _graphs(pipe)
     return (0, 0) if g is None else (g.captures, g.replays)
 
 
@@ -84,7 +90,7 @@ def test_the_gate_builds_graphs_for_the_unfused_xla_steps(case, graphed):
         "miso_only": (_small(), dict(enable_tracker=False)),
     }[case]
     pipe = AwpuPipeline(cfg, device="cpu", **kw)
-    assert (pipe.step.graphs is not None) == graphed
+    assert (_graphs(pipe) is not None) == graphed
 
 
 @pytest.mark.parametrize("with_draws", [False, True], ids=["own_draws", "draws"])
@@ -102,7 +108,7 @@ def test_the_cpu_and_draws_stay_eager(with_draws):
                      rng.uniform(0, 2 * np.pi, tc.n_seekers),
                      *rng.uniform(-1, 1, (2, tc.iterations, tc.n_seekers)))
         pipe.process_block(block, draws=draws)
-    assert pipe.step.graphs is not None
+    assert _graphs(pipe) is not None
     assert _counts(pipe) == (0, 0)
     assert ctk.monopulse_chain.launches == launches
 
@@ -130,7 +136,7 @@ def test_a_ch_axis_keeps_the_collectives_eager(world1, axes, graphed):
 
     mesh = make_mesh((1,) * len(axes), axis_names=axes, device_type="cpu")
     pipe = AwpuPipeline(_small(), mesh=mesh, device="cpu")
-    assert (pipe.step.graphs is not None) == graphed
+    assert (_graphs(pipe) is not None) == graphed
     for block in _blocks(pipe, 2):
         pipe.process_block(block)
     assert _counts(pipe) == (0, 0)
@@ -154,7 +160,7 @@ def test_the_device_stamp_promotes_as_the_host_index_did():
         stamped += [b] * int(new.sum())
     assert any(float(np.float32(b)) != b for b in stamped), "no rounded stamp"
 
-    step, dsp = pipe.step.tracker_step, pipe.cfg.dsp
+    step, dsp = pipe.step.unfused_step.tracker, pipe.cfg.dsp
     window = rg.ring_window(pipe.state.history, dsp.block_size, dsp.shift_range,
                             pipe.step.taps)
     by_int = step(pipe.state.swarm, window, first + 4,
@@ -217,8 +223,9 @@ def _recorded_capture(graph, **_):
 
 def test_a_recorded_replay_equals_the_eager_steps(monkeypatch):
     """On the CPU with :class:`_Recorded` in place of a CUDA graph, 12
-    blocks with a seeker reset every 5th through ``AwpuStep._replay``
-    against the eager tracker and MISO steps, from one state and seed:
+    blocks with a seeker reset every 5th through
+    ``UnfusedSwarmStep._replay`` against the eager tracker and MISO steps,
+    from one state and seed:
     states, targets, beams and generators equal bit for bit every block;
     2 graphs captured (blocks 2 and 5), 10 replays; each call's results
     read the same after the next call; other TF32 switches key their own
@@ -228,16 +235,18 @@ def test_a_recorded_replay_equals_the_eager_steps(monkeypatch):
     mode = f32_mode()
     cfg = _small(seeker_reset_interval=5)
     pipe = AwpuPipeline(cfg, device="cpu", seed=4)
-    step, dsp = pipe.step, cfg.dsp
+    step, dsp = pipe.step.unfused_step, cfg.dsp
     gens = [torch.Generator().manual_seed(11) for _ in range(2)]
     eager = graphed = pipe.state
     history, held = pipe.state.history, []
     for block in _blocks(pipe, 12):
         history = rg.ring_push(history, block)
-        window = rg.ring_window(history, dsp.block_size, dsp.shift_range, step.taps)
-        want = step._tracker_and_miso(eager.swarm, eager.miso, window,
-                                      eager.block_index, gens[0])
-        got = step._replay(graphed, window, gens[1])
+        window = rg.ring_window(history, dsp.block_size, dsp.shift_range,
+                                pipe.step.taps)
+        want = step._both(eager.swarm, eager.miso, window, eager.block_index,
+                          gens[0])
+        got = step._replay(graphed.swarm, graphed.miso, window,
+                           graphed.block_index, gens[1])
         for a, b in zip(torch.utils._pytree.tree_leaves(got),
                         torch.utils._pytree.tree_leaves(want)):
             assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
@@ -253,7 +262,8 @@ def test_a_recorded_replay_equals_the_eager_steps(monkeypatch):
     with full_f32():
         assert f32_mode() != mode
         for _ in range(2):
-            step._replay(graphed, window, gens[1])
+            step._replay(graphed.swarm, graphed.miso, window,
+                         graphed.block_index, gens[1])
     assert _counts(pipe) == (3, 11)
 
 
@@ -266,7 +276,7 @@ def test_graphed_pipeline_matches_eager_bit_for_bit(card):
     launches counted as the eager pipeline made."""
     pipes = [AwpuPipeline(Config(), channels=64, seed=2_718_281_828, device=card)
              for _ in range(2)]
-    pipes[1].step.graphs = None
+    pipes[1].step.unfused_step.graphs = None
     blocks = _blocks(pipes[0], 300, device=card)
     launches = []
     for pipe in pipes:
