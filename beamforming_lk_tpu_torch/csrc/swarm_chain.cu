@@ -142,10 +142,11 @@ struct Params {
   const float* resets;      // [K, 3, P] (flag, theta, phi); chunk kernel only
   const float* active;      // [n_sub, P]; monopulse chain only
   const float* references;  // [K]
+  const float* stamp;       // [] the promote stamp on the card; K1 only
   float* out_rows;          // [K, kStateRows, P] (chain: [6, P])
   float* out_mean;          // [K]
   float* out_beam;          // [K, T]
-  long long block_index0;   // global index of block 0
+  long long block_index0;   // global index of block 0; K2 only
   int n_blocks;
   int C, P, T, span, taps, n_iter, n_sub, refine, n_trackers;
   int quadrant, fir, fir_phases;
@@ -787,7 +788,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Smem s = enter<WT>(p, smem);
-  const Block b = block_at<WT>(p, 0);
+  Block b = block_at<WT>(p, 0);
+  b.block_index = *p.stamp;  // an operand, so that a CUDA graph replays it
   const WT* win = static_cast<const WT*>(b.win_bp);
   if (p.n_win) {
     stage_window_async<WT>(p, b.win_bp, s.win[0]);
@@ -1229,18 +1231,19 @@ extern "C" int swarm_cluster_size() {
 // is read from global memory (L2) in place.
 
 // One block (swarm_chain_pallas): win_bp [C, span+T-2], win_raw [C, span+T],
-// jumps [2, n_iter, P], reference []; out_rows [8, P], out_mean [],
+// jumps [2, n_iter, P], reference [], stamp [] (the block's index as f32,
+// the start of a tracker promoted in it); out_rows [8, P], out_mean [],
 // out_beam [T].
 extern "C" int swarm_chain_launch(
     const float* xyz, const void* win_bp, int win_bf16, const float* win_raw,
     const float* rows_in, const float* jumps, const float* reference,
-    float* out_rows, float* out_mean, float* out_beam, long long block_index,
+    const float* stamp, float* out_rows, float* out_mean, float* out_beam,
     const int* dims, const float* scalars, const float* host_consts,
     void* stream) {
   Params p = make_params(xyz, win_bp, win_raw, rows_in, jumps, reference,
                          out_rows, out_mean, out_beam, dims, scalars);
   p.n_blocks = 1;
-  p.block_index0 = block_index;
+  p.stamp = stamp;
   return launch_blocks(p, win_bf16, kSwarmChain, host_consts, stream);
 }
 

@@ -31,12 +31,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from beamforming_lk_tpu_torch.device import resolve_device
+from beamforming_lk_tpu_torch.device import f32_mode, resolve_device
 from beamforming_lk_tpu_torch.ops import antenna as ant
 from beamforming_lk_tpu_torch.ops import cuda_tracker as ctk
 from beamforming_lk_tpu_torch.ops import delay as dl
 from beamforming_lk_tpu_torch.ops import geometry as gm
+from beamforming_lk_tpu_torch.ops.cuda_tracker import block_stamp
 from beamforming_lk_tpu_torch.utils import profiling
+from beamforming_lk_tpu_torch.utils.graphs import StepGraphs
 
 
 class Particles(NamedTuple):
@@ -73,16 +75,6 @@ class Targets(NamedTuple):
     probability: torch.Tensor   # 1 / error
     start: torch.Tensor
     valid: torch.Tensor         # bool
-
-
-def block_stamp(block_index, like: torch.Tensor) -> torch.Tensor:
-    """The promote stamp of a block: its host index as an f32 scalar on
-    ``like``'s device (``float(block_index)`` rounded to f32); a tensor is
-    the stamp already."""
-    if isinstance(block_index, torch.Tensor):
-        return block_index
-    return torch.full((), float(block_index), dtype=torch.float32,
-                      device=like.device)
 
 
 def _empty_particles(n: int, device=None) -> Particles:
@@ -376,26 +368,27 @@ class _SwarmRows(nn.Module):
         """One block's swarm update through the configured backend ->
         (new state, Targets, listener or None, the swarm-chain kernel's
         MISO beam or None, raw compact window).  ``block_index`` is the
-        host counter, or on the XLA chain its f32 device scalar
-        (:func:`block_stamp`)."""
+        host counter or its f32 device scalar (:func:`block_stamp`), which
+        both backends read on the device."""
         with profiling.span("awpu.swarm.prep"):
             reference, win_bp, pw = self._prep(window)
         with profiling.span("awpu.swarm.draws"):
             seekers, jumps = self._draw(state, window.device, generator, draws)
         beam = None
+        stamp = block_stamp(block_index, window)
         with profiling.span("awpu.swarm.run"):
             if not self.xla:
                 out, mean, beam = ctk.swarm_chain(
                     self.probes.xyz, win_bp, pw,
                     self._rows(state, miso_particle, seekers), jumps,
-                    reference, block_index=block_index, **self._kernel_kw(),
+                    reference, block_index=stamp, **self._kernel_kw(),
                 )
                 nt = self.cfg.n_trackers
                 tracking, start = out[6, :nt] > 0.5, out[7, :nt]  # post-prune
             else:
                 out, tracking, start, mean = self._chain(
                     state, miso_particle, seekers, win_bp, reference, jumps,
-                    block_stamp(block_index, window),
+                    stamp,
                 )
         new_state, targets, miso_p = self._unpack(out, tracking, start, state,
                                                   mean, 1)
@@ -488,8 +481,7 @@ class SwarmStep(_SwarmRows):
 
     ``forward(state, window, block_index, generator=None, draws=None) ->
     (state, Targets)``; ``draws`` as :class:`FusedSwarmStep`'s;
-    ``block_index`` the host counter, or on the XLA chain its
-    :func:`block_stamp`."""
+    ``block_index`` the host counter or its :func:`block_stamp`."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
                  probe_span=None, device="cuda", layout=None):
@@ -513,7 +505,15 @@ class FusedSwarmStep(_SwarmRows):
     draws=None) -> (state, Targets, miso_particle, miso_beam[T])``.
     ``draws = (reset_theta[Ns], reset_phi[Ns], jump_theta[I, Ns],
     jump_phi[I, Ns])`` replaces the generator's draws (tests feed the JAX
-    package's own draws through it)."""
+    package's own draws through it).
+
+    On the kernel backend (so without a mesh ``ch`` axis, whose all-reduce
+    in :meth:`_prep` stays eager) the step reads no host value but the
+    seeker reset, K1 taking the block's stamp from the card; so on the
+    card it replays as one CUDA graph a key (:attr:`graphs`,
+    :meth:`_replay`): a key's first block eager, its second captured,
+    every later one replayed.  ``draws`` runs eagerly; ``step.graphs =
+    None`` gives the eager path."""
 
     def __init__(self, cfg, dsp, array_cfg, points, channel_mask=None,
                  probe_span=None, miso_refine_steps: int = 3, device="cuda",
@@ -527,15 +527,37 @@ class FusedSwarmStep(_SwarmRows):
                          probe_span, 1, miso_refine_steps, device, layout)
         self.beam = MisoBeam(dsp, array_cfg, points, channel_mask, self.span,
                              device, layout)
+        # self.xla holds under a mesh ch axis too (_SwarmRows).
+        self.graphs = None if self.xla else StepGraphs(
+            self._step, counters=(ctk.swarm_chain,), span="awpu.swarm.replay")
 
     def forward(self, state: SwarmState, miso_particle: Particles, window,
                 block_index: int, generator: Optional[torch.Generator] = None,
                 draws=None):
+        if self.graphs is not None and window.is_cuda and draws is None:
+            return self._replay(state, miso_particle, window, block_index,
+                                generator)
+        return self._step(state, miso_particle, window, block_index,
+                          generator, draws)
+
+    def _step(self, state: SwarmState, miso_particle: Particles, window,
+              block_index, generator=None, draws=None):
+        """The eager step of :meth:`forward`."""
         new_state, targets, miso_p, beam, pw = self._update(
             state, miso_particle, window, block_index, generator, draws)
         if beam is None:
             beam = self.beam(miso_p, pw)
         return new_state, targets, miso_p, beam
+
+    def _replay(self, state: SwarmState, miso_particle: Particles, window,
+                block_index, generator):
+        """:meth:`_step` through :attr:`graphs`, keyed by the seeker reset
+        and the TF32 switches; the host counter counts on."""
+        new, targets, miso_p, beam = self.graphs(
+            (self.reset_fires(state.reset_count), f32_mode()),
+            state, miso_particle, window, block_stamp(block_index, window),
+            generator)
+        return new._replace(reset_count=state.reset_count + 1), targets, miso_p, beam
 
 
 class MisoBeam(nn.Module):
@@ -595,6 +617,7 @@ class FusedChunkStep(FusedSwarmStep):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        self.graphs = None      # one K2 launch a chunk; never replayed
         ns = self.cfg.n_seekers
         device = self.consts.device
         self.register_buffer("ones_s", torch.ones((ns,), device=device))

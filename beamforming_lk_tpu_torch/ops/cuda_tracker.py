@@ -22,6 +22,9 @@ chunk forms stack the per-block operands on a leading axis of K):
                  particle rows are laid out trackers | miso | seekers
 - ``jumps``      [2, n_iter, P] f32 seeker jump offsets (theta, phi)
 - ``reference``  [] f32 the prune floor (channel-0 bandpass power)
+- ``stamp``      [] f32 the block's index (:func:`block_stamp`), the start
+                 of a tracker promoted in the block (single block only; the
+                 chunk forms take block 0's index on the host)
 - ``resets``     [K, 3, P] f32 (chunk only): flag, theta, phi of the seeker
                  reset before block k (seeker rows take theta, phi when the
                  flag is set)
@@ -75,6 +78,16 @@ _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "csrc", "swarm_chain.cu",
 )
+
+
+def block_stamp(block_index, like: torch.Tensor) -> torch.Tensor:
+    """The promote stamp of a block: its host index as an f32 scalar on
+    ``like``'s device (``float(block_index)`` rounded to f32); a tensor is
+    the stamp already."""
+    if isinstance(block_index, torch.Tensor):
+        return block_index
+    return torch.full((), float(block_index), dtype=torch.float32,
+                      device=like.device)
 
 
 def pack_geometry(points, samples_per_meter, channel_mask=None, device="cuda"):
@@ -282,6 +295,7 @@ def swarm_chain_reference(
     tgt_th, tgt_ph, tgt_va = rows[13], rows[14], rows[15]
     row_idx = torch.arange(p, device=rows.device)
     nt = n_trackers
+    stamp = block_stamp(block_index, rows)
     mean = torch.zeros((), dtype=torch.float32, device=rows.device)
     sub_kw = dict(span=span, taps=taps, interp=interp, fir_phases=fir_phases,
                   inv_div=1.0 / float(divisor),
@@ -347,7 +361,7 @@ def swarm_chain_reference(
         promote = better & (n_tracking < float(nt)) & ~(tracking > 0.5) & is_tracker
         theta = torch.where(promote, pick(oh, theta), theta)
         phi = torch.where(promote, pick(oh, phi), phi)
-        start = torch.where(promote, float(block_index), start)
+        start = torch.where(promote, stamp, start)
         tracking = torch.where(promote, 1.0, tracking)
 
         n_valid = torch.clamp(valid.sum().to(torch.float32), min=1.0)
@@ -434,9 +448,7 @@ def load_library(path):
     """The built swarm-chain library at ``path``, its entry points typed."""
     lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.swarm_chain_launch.argtypes = (
-        [ptr, ptr, i32] + [ptr] * 7 + [i64] + [ptr] * 4
-    )
+    lib.swarm_chain_launch.argtypes = [ptr, ptr, i32] + [ptr] * 12
     lib.swarm_chunk_launch.argtypes = (
         [ptr, ptr, i32] + [ptr] * 8 + [i32, i64] + [ptr] * 4
     )
@@ -483,10 +495,12 @@ def require_cuda(entry, device):
 
 
 def _check_operands(xyz, window_bp, window_raw, rows, jumps, reference,
-                    resets, *, n_iter, n_trackers, span, taps, interp, **_):
+                    resets, *, n_iter, n_trackers, span, taps, interp,
+                    stamp=None, **_):
     """Raise unless the operands fit the kernel (``resets`` is None for the
-    single-block kernel, whose operands have no block axis).  Run on every
-    device, so the CPU twin's callers are held to the kernel's layout."""
+    single-block kernel, whose operands have no block axis and whose
+    ``stamp`` is a tensor).  Run on every device, so the CPU twin's callers
+    are held to the kernel's layout."""
     chunk = resets is not None
     lead = tuple(window_bp.shape[:1]) if chunk else ()
     device = rows.device
@@ -508,6 +522,8 @@ def _check_operands(xyz, window_bp, window_raw, rows, jumps, reference,
     check_operand("reference", reference, device, f32, lead)
     if chunk:
         check_operand("resets", resets, device, f32, lead + (3, p))
+    else:
+        check_operand("stamp", stamp, device, f32, ())
     if not 0 < n_trackers <= p:
         raise ValueError(f"n_trackers={n_trackers} outside (0, {p}]")
 
@@ -517,7 +533,8 @@ def _launch(entry, xyz, window_bp, window_raw, rows, jumps, reference,
             taps, theta_limit, divisor, closeness, error_threshold,
             probe_layout, interp, fir_phases, min_power_fraction):
     """Allocate the outputs of one launch of checked operands and launch on
-    the current stream."""
+    the current stream (``block_index``: the chunk's host index of block 0,
+    or the single block's stamp tensor)."""
     lead = tuple(window_bp.shape[:1]) if resets is not None else ()
     device = rows.device
     p = rows.shape[1]
@@ -542,7 +559,7 @@ def _launch(entry, xyz, window_bp, window_raw, rows, jumps, reference,
         )
     else:
         err = lib.swarm_chain_launch(
-            *head, reference.data_ptr(), *outs, int(block_index), *tail,
+            *head, reference.data_ptr(), block_index.data_ptr(), *outs, *tail,
         )
     _raise_on(entry, err)
     return state, mean, beam
@@ -587,9 +604,12 @@ def swarm_chain(
     probe_layout="quadrant", interp="linear", fir_phases=101,
     min_power_fraction=0.0,
 ):
-    """The per-block swarm update (see the module docstring for operands).
-    Returns ``(state [8, P], mean [], beam [T])``; ``swarm_chain.launches``
-    counts kernel launches."""
+    """The per-block swarm update (see the module docstring for operands;
+    ``block_index`` the host index or its :func:`block_stamp`, which the
+    kernel reads on the card, so that a CUDA graph of the launch takes it
+    as an operand).  Returns ``(state [8, P], mean [], beam [T])``;
+    ``swarm_chain.launches`` counts kernel launches."""
+    stamp = block_stamp(block_index, rows)
     kw = dict(
         n_iter=n_iter, n_sub=n_sub, refine=refine,
         n_trackers=n_trackers, span=span, taps=taps, theta_limit=theta_limit,
@@ -598,15 +618,15 @@ def swarm_chain(
         min_power_fraction=min_power_fraction,
     )
     _check_operands(xyz, window_bp, window_raw, rows, jumps, reference, None,
-                    **kw)
+                    stamp=stamp, **kw)
     if rows.device.type == "cpu":
         return swarm_chain_reference(
             xyz, window_bp, window_raw, rows, jumps, reference,
-            block_index=block_index, **kw,
+            block_index=stamp, **kw,
         )
     require_cuda("swarm_chain", rows.device)
     out = _launch("swarm_chain", xyz, window_bp, window_raw, rows, jumps,
-                  reference, None, block_index=block_index, **kw)
+                  reference, None, block_index=stamp, **kw)
     swarm_chain.launches += 1
     return out
 
