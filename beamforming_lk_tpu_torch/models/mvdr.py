@@ -21,7 +21,9 @@ the Cholesky's ``info`` stays on the device, where it turns a factor that
 failed (a covariance that is not positive definite, only from non-finite
 input: the loading keeps a silent block definite) into NaN, as the JAX
 package's Cholesky does.  Each call runs without TF32
-(:func:`device.full_f32`).
+(:func:`device.full_f32`).  Under a profiler the stages open the spans
+``awpu.estimator.covariance``, ``.factor`` and ``.directions``;
+:attr:`MvdrStep.solves` counts the direction stages run.
 """
 
 from __future__ import annotations
@@ -218,6 +220,9 @@ class MvdrStep(CovarianceStep):
                          f_high, ema_alpha, channel_mask, device, shard)
         self.diagonal_loading = diagonal_loading
         self.weight_refresh = int(weight_refresh)
+        #: Direction stages run since the step was built (a host int: one
+        #: a block at ``weight_refresh`` 1, one in k at k).
+        self.solves = 0
 
     def init(self) -> MvdrState:
         return mvdr_init(self.n_bins, self.channels,
@@ -227,22 +232,27 @@ class MvdrStep(CovarianceStep):
     def factor(self, cov_re, cov_im):
         """The lower Cholesky factor [F, 2C, 2C] of the loaded covariance's
         embedding: the loading is ``diagonal_loading`` times each bin's mean
-        channel power.  A bin whose factorisation fails is all NaN."""
-        c = cov_re.shape[-1]
-        tr = torch.diagonal(cov_re, dim1=-2, dim2=-1).sum(-1)       # [F]
-        load = self.diagonal_loading * tr / c + 1e-12
-        eye = torch.eye(c, dtype=cov_re.dtype, device=cov_re.device)
-        m = hermitian_embed(cov_re + load[:, None, None] * eye, cov_im)
-        chol, info = torch.linalg.cholesky_ex(m)
-        return torch.where((info > 0)[:, None, None], torch.nan, chol)
+        channel power.  A bin whose factorisation fails is all NaN.  The
+        span ``awpu.estimator.factor``."""
+        with span("awpu.estimator.factor"):
+            c = cov_re.shape[-1]
+            tr = torch.diagonal(cov_re, dim1=-2, dim2=-1).sum(-1)   # [F]
+            load = self.diagonal_loading * tr / c + 1e-12
+            eye = torch.eye(c, dtype=cov_re.dtype, device=cov_re.device)
+            m = hermitian_embed(cov_re + load[:, None, None] * eye, cov_im)
+            chol, info = torch.linalg.cholesky_ex(m)
+            return torch.where((info > 0)[:, None, None], torch.nan, chol)
 
     def directions(self, chol):
         """Capon powers [D] from the factor: ``sum_f binw_f / ||L_f^-1
-        v_emb[f, d]||^2``."""
-        y = torch.linalg.solve_triangular(chol, self.v_emb.mT, upper=False)
-        denom = (y * y).sum(dim=1)                                  # [F, D]
-        return self.reduce(
-            (self.binw[:, None] / torch.clamp(denom, min=1e-20)).sum(0))
+        v_emb[f, d]||^2``; counted in :attr:`solves`.  The span
+        ``awpu.estimator.directions``."""
+        with span("awpu.estimator.directions"):
+            self.solves += 1
+            y = torch.linalg.solve_triangular(chol, self.v_emb.mT, upper=False)
+            denom = (y * y).sum(dim=1)                              # [F, D]
+            return self.reduce(
+                (self.binw[:, None] / torch.clamp(denom, min=1e-20)).sum(0))
 
     def forward(self, state: MvdrState, block):
         refresh = self.weight_refresh > 1

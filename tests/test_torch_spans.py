@@ -24,7 +24,8 @@ PROFILES = {
 }
 #: The spans inside the estimator, each once a block.
 ESTIMATOR_STAGES = {
-    "mvdr": ("awpu.estimator.covariance",),
+    "mvdr": ("awpu.estimator.covariance", "awpu.estimator.factor",
+             "awpu.estimator.directions"),
     "music": ("awpu.estimator.covariance", "awpu.estimator.subspace",
               "awpu.estimator.spectrum"),
 }
