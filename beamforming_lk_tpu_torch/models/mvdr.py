@@ -23,7 +23,9 @@ input: the loading keeps a silent block definite) into NaN, as the JAX
 package's Cholesky does.  Each call runs without TF32
 (:func:`device.full_f32`).  Under a profiler the stages open the spans
 ``awpu.estimator.covariance``, ``.factor`` and ``.directions``;
-:attr:`MvdrStep.solves` counts the direction stages run.
+:attr:`MvdrStep.solves` counts the direction stages run.  On the card the
+whole step (covariance EMA, factor, directions) replays as one CUDA graph
+a block (:meth:`MvdrStep.forward`, ``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from beamforming_lk_tpu_torch.config import ArrayConfig
 from beamforming_lk_tpu_torch.device import full_f32, resolve_device
 from beamforming_lk_tpu_torch.parallel.mesh import Axis, Layout
 from beamforming_lk_tpu_torch.ops import antenna as ant
+from beamforming_lk_tpu_torch.utils.graphs import StepGraphs
 from beamforming_lk_tpu_torch.utils.profiling import span
 
 
@@ -209,7 +212,14 @@ class MvdrStep(CovarianceStep):
     in every block, and the Cholesky and the direction stage (the block's
     dominant cost) run on blocks with ``count % k == 0``; the blocks in
     between carry ``state.powers``.  Refresh blocks equal the undecimated
-    step's."""
+    step's.
+
+    On one device the step reads no host value but whether the block is
+    cold and whether it solves, so on the card it replays as one CUDA graph
+    a key (:attr:`graphs`, :meth:`_replay`): a key's first block runs
+    eagerly, its second captures, and every later one replays.  A
+    bin-sharded step (its all-reduces) stays eager; set ``step.graphs =
+    None`` for the eager path on the card."""
 
     def __init__(self, points, theta, phi, array_cfg=ArrayConfig(),
                  frame_size: int = 64, hop: int = 32, f_low: float = 550.0,
@@ -221,8 +231,12 @@ class MvdrStep(CovarianceStep):
         self.diagonal_loading = diagonal_loading
         self.weight_refresh = int(weight_refresh)
         #: Direction stages run since the step was built (a host int: one
-        #: a block at ``weight_refresh`` 1, one in k at k).
+        #: a block at ``weight_refresh`` 1, one in k at k), replays included.
         self.solves = 0
+        self.graphs = None
+        if shard is None:
+            self.graphs = StepGraphs(self._step, counters=(),
+                                     span="awpu.estimator.replay")
 
     def init(self) -> MvdrState:
         return mvdr_init(self.n_bins, self.channels,
@@ -254,19 +268,40 @@ class MvdrStep(CovarianceStep):
             return self.reduce(
                 (self.binw[:, None] / torch.clamp(denom, min=1e-20)).sum(0))
 
+    def _solves(self, count: int) -> bool:
+        """Whether the block after ``count`` folded ones runs the factor and
+        the direction stage."""
+        return count % self.weight_refresh == 0
+
+    def _replay(self, state: MvdrState, block):
+        """:meth:`_step` through :attr:`graphs`, one graph a value of
+        whether the block is cold and whether it solves; the host count and
+        :attr:`solves` count on."""
+        solves = self._solves(state.count)
+        before = self.solves
+        new, powers = self.graphs((state.count == 0, solves), state, block)
+        self.solves = before + solves
+        return new._replace(count=state.count + 1), powers
+
     def forward(self, state: MvdrState, block):
-        refresh = self.weight_refresh > 1
-        if refresh and state.powers is None:
+        if self.weight_refresh > 1 and state.powers is None:
             raise ValueError(
                 "a step with weight_refresh > 1 carries its spectrum in "
                 "state.powers: start from step.init() (or mvdr_init with "
                 "n_directions)")
+        if self.graphs is not None and block.is_cuda:
+            return self._replay(state, block)
+        return self._step(state, block)
+
+    def _step(self, state: MvdrState, block):
+        """The eager step of :meth:`forward`."""
+        refresh = self.weight_refresh > 1
         with full_f32():
             cov_re, cov_im = self.covariance(state, block)
-            if refresh and state.count % self.weight_refresh:
-                powers = state.powers
-            else:
+            if self._solves(state.count):
                 powers = self.directions(self.factor(cov_re, cov_im))
+            else:
+                powers = state.powers
         return MvdrState(cov_re, cov_im, state.count + 1,
                          powers if refresh else None), powers
 

@@ -8,8 +8,9 @@ block in ``heatmap_mode="mvdr"`` opens ``awpu.estimator.covariance``,
 - with no profiler running the step dispatches the same operators, in the
   same order, as a step whose spans are plain no-ops (each operator a
   kernel launch on the card), and its outputs equal bit for bit;
-- on the card (marked ``card``, skipped without one): a block of the step
-  makes no sync.
+- on the card (marked ``card``, skipped without one): a block of the
+  eager step makes no sync (the graphed step's replay is
+  ``tests/test_torch_mvdr_graph.py``'s).
 
 The card test imports no JAX: run it on the card with
 ``python -m pytest tests/test_torch_mvdr_spans.py -q -m card --noconftest``.
@@ -100,11 +101,12 @@ def test_spans_add_no_operator_and_leave_the_outputs_bit_for_bit(monkeypatch):
 @pytest.mark.card
 def test_an_mvdr_block_makes_no_sync_on_the_card(card):
     """Under ``torch.cuda.set_sync_debug_mode("error")`` a block of the
-    ``lk256-mvdr`` estimator (256 mics, the 64 x 64 grid), spans and counter
-    included, raises nothing."""
+    ``lk256-mvdr`` estimator (256 mics, the 64 x 64 grid) on the eager path,
+    spans and counter included, raises nothing."""
     pipe = AwpuPipeline(realtime(Config()), channels=256, heatmap_mode="mvdr",
                         device=card)
     step = pipe._mvdr_step
+    step.graphs = None
     blocks = _blocks(2, pipe.points, device=card)
     state, _ = step(step.init(), blocks[0])
     torch.cuda.synchronize()
